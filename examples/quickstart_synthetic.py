@@ -4,9 +4,10 @@ Generates a miniature ShapeNet-format dataset, trains the Full-style
 weak-supervision pipeline for a few epochs, evaluates, and runs test-time
 inference with probabilistic label propagation.
 
-    python examples/quickstart_synthetic.py [--epochs 8] [--tpu]
+    python examples/quickstart_synthetic.py [--epochs 8]
 
-Runs on CPU by default (~2 min); pass --tpu to use the default JAX backend.
+Runs on JAX's default backend (a GPU if one is present); on a CPU-only
+machine set ``JAX_PLATFORMS=cpu`` (~2 min).
 """
 
 from __future__ import annotations
@@ -23,14 +24,7 @@ def main() -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--epochs", type=int, default=8)
     p.add_argument("--points", type=int, default=64)
-    p.add_argument("--tpu", action="store_true",
-                   help="use the default JAX backend instead of forcing CPU")
     args = p.parse_args()
-
-    import jax
-
-    if not args.tpu:
-        jax.config.update("jax_platforms", "cpu")
 
     from weaksuppointcloudseg_tpu import configs
     from weaksuppointcloudseg_tpu.data import sampling, shapenet
@@ -84,8 +78,8 @@ def main() -> None:
         export_inference, load_inference)
 
     artifact = os.path.join(workdir, "model.stablehlo")
-    # default platforms ("cpu", "tpu"): the round-trip below must run on
-    # whichever backend this process uses (--tpu or the CPU pin)
+    # default platforms ("cpu", "cuda"): the round-trip below runs on
+    # whichever of the two this process uses
     export_inference(cfg, trainer.state.params, trainer.state.bn_state,
                      artifact, batch_size=2)
     serve, meta = load_inference(artifact)

@@ -1,4 +1,4 @@
-// Host-side batch-assembly core for the TPU data pipeline.
+// Host-side batch-assembly core for the data pipeline.
 //
 // The reference assembles every batch with Python loops (one-hot encoding is
 // a triple loop, Util/Tool.py:4-28; Siamese duplication a per-sample append

@@ -147,7 +147,7 @@ def run_s3dis(args, m=None) -> dict:
     check_summary_format(
         os.path.join(rdir, "Summary", "Summary.txt"),
         os.path.join(GOLDEN_DIR, "Summary_S3DIS_golden.txt"))
-    # synthetic datasets keep meta/ + rooms/ next to the h5 shards; real
+    # synthetic datasets keep meta/ + rooms/ next to the block shards; real
     # S3DIS has them in the dataset base dir (prepare scripts' layout)
     rooms = data if args.smoke else base
     out = _capture(test_s3dis.main, [
@@ -171,7 +171,7 @@ def validate_shapenet_data(base_dir: str) -> list:
     53-117, 122-142). Returns a list of problems (empty = ready)."""
     import json as _json
 
-    import h5py
+    from weaksuppointcloudseg_tpu.data.shards import read_shard
 
     problems = []
     h5dir = os.path.join(base_dir, "hdf5_data")
@@ -197,33 +197,33 @@ def validate_shapenet_data(base_dir: str) -> list:
         if not _vd_err(problems, os.path.isfile(lst), f"missing {lst}"):
             continue
         names = [ln.strip() for ln in open(lst) if ln.strip()]
-        _vd_err(problems, len(names) > 0, f"{lst} lists no h5 files")
+        _vd_err(problems, len(names) > 0, f"{lst} lists no shard files")
         for name in names:
             h5path = os.path.join(h5dir, os.path.basename(name))
             if not _vd_err(problems, os.path.isfile(h5path),
                            f"missing {h5path} (listed in {split} list)"):
                 continue
-            with h5py.File(h5path, "r") as f:
-                for field in ("data", "label", "pid"):
-                    if not _vd_err(problems, field in f,
-                                   f"{h5path}: missing dataset '{field}'"):
-                        break
-                else:
-                    d, l, s = f["data"], f["label"], f["pid"]
-                    _vd_err(problems,
-                            d.ndim == 3 and d.shape[-1] == 3,
-                            f"{h5path}: data must be [B,N,3], got {d.shape}")
-                    _vd_err(problems, s.shape[:2] == d.shape[:2],
-                            f"{h5path}: pid {s.shape} != data rows "
-                            f"{d.shape[:2]}")
-                    _vd_err(problems, l.shape[0] == d.shape[0],
-                            f"{h5path}: label rows {l.shape[0]} != "
-                            f"{d.shape[0]}")
-                    smax = int(np.asarray(s[:1]).max()) if len(s) else 0
-                    _vd_err(problems, smax < num_parts,
-                            f"{h5path}: pid value {smax} >= {num_parts} "
-                            "part classes")
-                    n_pts = d.shape[1] if n_pts is None else n_pts
+            f = read_shard(h5path)
+            for field in ("data", "label", "pid"):
+                if not _vd_err(problems, field in f,
+                               f"{h5path}: missing dataset '{field}'"):
+                    break
+            else:
+                d, l, s = f["data"], f["label"], f["pid"]
+                _vd_err(problems,
+                        d.ndim == 3 and d.shape[-1] == 3,
+                        f"{h5path}: data must be [B,N,3], got {d.shape}")
+                _vd_err(problems, s.shape[:2] == d.shape[:2],
+                        f"{h5path}: pid {s.shape} != data rows "
+                        f"{d.shape[:2]}")
+                _vd_err(problems, l.shape[0] == d.shape[0],
+                        f"{h5path}: label rows {l.shape[0]} != "
+                        f"{d.shape[0]}")
+                smax = int(np.asarray(s[:1]).max()) if len(s) else 0
+                _vd_err(problems, smax < num_parts,
+                        f"{h5path}: pid value {smax} >= {num_parts} "
+                        "part classes")
+                n_pts = d.shape[1] if n_pts is None else n_pts
     test_list = os.path.join(base_dir, "testing_ply_file_list.txt")
     if _vd_err(problems, os.path.isfile(test_list),
                f"missing {test_list}"):
@@ -272,7 +272,7 @@ def glob_mats(pre_dir: str) -> list:
 def validate_s3dis_data(base_dir: str, test_area: int = 5) -> list:
     """Check an S3DIS tree against the loaders (data/s3dis.py; reference:
     DataIO_S3DIS.py:47-83, 254-267). Returns a list of problems."""
-    import h5py
+    from weaksuppointcloudseg_tpu.data.shards import read_shard
 
     problems = []
     for fname in ("all_files.txt", "room_filelist.txt"):
@@ -296,23 +296,23 @@ def validate_s3dis_data(base_dir: str, test_area: int = 5) -> list:
         if not _vd_err(problems, os.path.isfile(h5path),
                        f"missing {h5path} (listed in all_files.txt)"):
             continue
-        with h5py.File(h5path, "r") as f:
-            if not _vd_err(problems, "data" in f and "label" in f,
-                           f"{h5path}: needs 'data' and 'label' datasets"):
-                continue
-            d, l = f["data"], f["label"]
-            _vd_err(problems, d.ndim == 3 and d.shape[-1] == 9,
-                    f"{h5path}: data must be [B,4096,9] "
-                    f"(DataIO_S3DIS.py:122 channel doc), got {d.shape}")
-            _vd_err(problems, l.shape[:2] == d.shape[:2],
-                    f"{h5path}: label {l.shape} != data rows {d.shape[:2]}")
-            if len(l):
-                lmax = int(np.asarray(l[:1]).max())
-                _vd_err(problems, lmax < 13,
-                        f"{h5path}: label value {lmax} >= 13 classes")
-            total += d.shape[0]
+        f = read_shard(h5path)
+        if not _vd_err(problems, "data" in f and "label" in f,
+                       f"{h5path}: needs 'data' and 'label' datasets"):
+            continue
+        d, l = f["data"], f["label"]
+        _vd_err(problems, d.ndim == 3 and d.shape[-1] == 9,
+                f"{h5path}: data must be [B,4096,9] "
+                f"(DataIO_S3DIS.py:122 channel doc), got {d.shape}")
+        _vd_err(problems, l.shape[:2] == d.shape[:2],
+                f"{h5path}: label {l.shape} != data rows {d.shape[:2]}")
+        if len(l):
+            lmax = int(np.asarray(l[:1]).max())
+            _vd_err(problems, lmax < 13,
+                    f"{h5path}: label value {lmax} >= 13 classes")
+        total += d.shape[0]
     _vd_err(problems, total == len(rooms),
-            f"total h5 blocks ({total}) != room_filelist lines "
+            f"total shard blocks ({total}) != room_filelist lines "
             f"({len(rooms)}) — the area split would misalign")
     meta = os.path.join(base_dir, "meta", f"area{test_area}_data_label.txt")
     if _vd_err(problems, os.path.isfile(meta),

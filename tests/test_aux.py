@@ -103,7 +103,7 @@ class TestClassifier:
     def test_forward_and_loss(self, rng):
         cfg = dgcnn_cls.ClsConfig(
             num_classes=10, k=4, edge_channels=(8, 8, 8, 16),
-            global_channels=32, fc_channels=(16, 8), use_fused_knn=False,
+            global_channels=32, fc_channels=(16, 8),
         )
         params, state = dgcnn_cls.init_dgcnn_cls(jax.random.PRNGKey(0), cfg)
         x = rng.standard_normal((2, 32, 3)).astype(np.float32)

@@ -79,8 +79,8 @@ class TestPrepUtil:
         d, l, s = prep_util.load_h5_data_label_seg(p)
         np.testing.assert_array_equal(s, seg)
         # field names interchange with the reference loaders (pid)
-        from weaksuppointcloudseg_tpu.data.shapenet import load_h5_seg
-        d2, l2, s2 = load_h5_seg(p)
+        from weaksuppointcloudseg_tpu.data.shapenet import load_seg_shard
+        d2, l2, s2 = load_seg_shard(p)
         np.testing.assert_array_equal(s2, seg)
 
     def test_ply_and_pad(self, tmp_path, rng):

@@ -23,15 +23,21 @@ def tiny_cfg(categories: int):
     return dataclasses.replace(base, model=model)
 
 
+@pytest.mark.parametrize("platforms", [("cpu",), ("cpu", "cuda")])
 @pytest.mark.parametrize("categories", [4, 0])
-def test_export_roundtrip_matches_forward(tmp_path, rng, categories):
+def test_export_roundtrip_matches_forward(tmp_path, rng, categories,
+                                          platforms):
+    """The artifact runs here on the CPU; with ``cuda`` among its
+    platforms it also carries the GPU lowering (kNN Triton kernel), which
+    a CPU host can produce but not run."""
     cfg = tiny_cfg(categories)
     params, bn_state = init_dgcnn_seg(jax.random.PRNGKey(0), cfg.model)
     path = str(tmp_path / "m.stablehlo")
     export_inference(cfg, params, bn_state, path, batch_size=2,
-                     platforms=("cpu",))
+                     platforms=platforms)
     fn, sidecar = load_inference(path)
     assert sidecar["num_points"] == 64 and sidecar["num_classes"] == 8
+    assert tuple(sidecar["platforms"]) == platforms
 
     x = rng.standard_normal((2, 64, 3)).astype(np.float32)
     args = (x,)
@@ -41,7 +47,7 @@ def test_export_roundtrip_matches_forward(tmp_path, rng, categories):
         args = (x, cat)
     got = np.asarray(fn(*args))
 
-    model = dataclasses.replace(cfg.model, use_fused_knn=False)
+    model = cfg.model
     logits, _ = apply_dgcnn_seg(
         params, bn_state, x, args[1] if categories else None,
         cfg=model, training=False, bn_decay=None,

@@ -259,179 +259,8 @@ def test_conv_bcast_matches_concat(rng):
                                    atol=5e-5, err_msg=name)
 
 
-class TestKnownBadBf16Guard:
-    """The straight bf16 conv+BN+k-max composition miscompiles to zero
-    gradients on the TPU backend (docs/kernels.md); configs that would
-    reach it must hard-error unless explicitly overridden."""
-
-    def _fake_tpu_backend(self, monkeypatch):
-        import weaksuppointcloudseg_tpu.models.dgcnn as dgcnn_mod
-
-        from conftest import FakeTpuJax
-
-        monkeypatch.setattr(dgcnn_mod, "jax", FakeTpuJax())
-
-    def test_seg_raises_on_straight_bf16(self, monkeypatch, rng):
-        from weaksuppointcloudseg_tpu.models.dgcnn import (
-            apply_dgcnn_seg,
-            init_dgcnn_seg,
-        )
-
-        self._fake_tpu_backend(monkeypatch)
-        cfg = dataclasses.replace(
-            configs.shapenet_config().model,
-            num_points=32, compute_dtype="bfloat16", use_fused_knn=False,
-        )
-        params, state = init_dgcnn_seg(jax.random.PRNGKey(0), cfg)
-        x = jnp.asarray(rng.standard_normal((2, 32, 3)), jnp.float32)
-        cat = jnp.zeros((2, cfg.num_categories), jnp.float32)
-        with pytest.raises(ValueError, match="miscompiles"):
-            apply_dgcnn_seg(params, state, x, cat, cfg=cfg, training=True,
-                            bn_decay=0.9)
-
-    def test_seg_override_downgrades_to_warning(self, monkeypatch, rng):
-        from weaksuppointcloudseg_tpu.models.dgcnn import (
-            apply_dgcnn_seg,
-            init_dgcnn_seg,
-        )
-
-        self._fake_tpu_backend(monkeypatch)
-        cfg = dataclasses.replace(
-            configs.shapenet_config().model,
-            num_points=32, compute_dtype="bfloat16", use_fused_knn=False,
-            allow_known_bad_bf16=True,
-        )
-        params, state = init_dgcnn_seg(jax.random.PRNGKey(0), cfg)
-        x = jnp.asarray(rng.standard_normal((2, 32, 3)), jnp.float32)
-        cat = jnp.zeros((2, cfg.num_categories), jnp.float32)
-        # backend is actually CPU, so the forward itself runs fine; the
-        # guard must warn but not raise
-        with pytest.warns(UserWarning, match="miscompiles"):
-            logits, _ = apply_dgcnn_seg(params, state, x, cat, cfg=cfg,
-                                        training=True, bn_decay=0.9)
-        assert logits.shape == (2, 32, cfg.num_classes)
-
-    def test_cls_raises_on_bf16(self, monkeypatch, rng):
-        import weaksuppointcloudseg_tpu.models.dgcnn_cls as cls_mod
-
-        from conftest import FakeTpuJax
-
-        monkeypatch.setattr(cls_mod, "jax", FakeTpuJax())
-        # the fused path (use_fused_knn=True) is immune by construction;
-        # only the straight composition must raise
-        cfg = cls_mod.ClsConfig(use_fused_knn=False)
-        params, state = cls_mod.init_dgcnn_cls(jax.random.PRNGKey(0), cfg)
-        x = jnp.asarray(rng.standard_normal((2, 32, 3)), jnp.bfloat16)
-        with pytest.raises(ValueError, match="miscompiles"):
-            cls_mod.apply_dgcnn_cls(params, state, x, cfg=cfg, training=True,
-                                    bn_decay=0.9)
-
-
-class TestStaticGraphStages:
-    """Static-graph (reuse_idx) stage variants == the selecting stages
-    given the same graph: forward outputs, BN state, and parameter/input
-    gradients (interpret mode on CPU)."""
-
-    def _stage_params(self, rng, c, c1, c2):
-        p1, s1 = layers.init_conv(jax.random.PRNGKey(10), 2 * c, c1)
-        p2, s2 = layers.init_conv(jax.random.PRNGKey(11), c1, c2)
-        # non-trivial BN affine so its gradient path is exercised
-        p1 = dict(p1, gamma=1.0 + 0.1 * jnp.arange(c1, dtype=jnp.float32))
-        p2 = dict(p2, beta=0.05 * jnp.arange(c2, dtype=jnp.float32))
-        return p1, s1, p2, s2
-
-    def test_two_conv_stage_pre_matches_selecting(self, rng):
-        b, n, k, c, c1, c2 = 2, 64, 6, 5, 8, 16
-        f = jnp.asarray(rng.standard_normal((b, n, c)), jnp.float32)
-        g = jnp.asarray(rng.standard_normal((b, n, 3)), jnp.float32)
-        p1, s1, p2, s2 = self._stage_params(rng, c, c1, c2)
-        kw = dict(training=True, bn_decay=0.9, interpret=True)
-
-        out, ns1, ns2, (idx, _) = layers.apply_edge_conv_stage_fused(
-            p1, s1, p2, s2, f, g, k, want_graph=True, **kw)
-        out_p, ns1_p, ns2_p = layers.apply_edge_conv_stage_fused(
-            p1, s1, p2, s2, f, g, k, reuse_idx=idx, **kw)
-        np.testing.assert_array_equal(np.asarray(out), np.asarray(out_p))
-        for ns, ns_p in ((ns1, ns1_p), (ns2, ns2_p)):
-            for key in ("mean", "var"):
-                np.testing.assert_allclose(
-                    np.asarray(ns[key]), np.asarray(ns_p[key]), rtol=1e-6)
-
-        w = jnp.asarray(rng.standard_normal(out.shape), jnp.float32)
-
-        def loss_sel(args):
-            p1_, p2_, f_ = args
-            o, _, _ = layers.apply_edge_conv_stage_fused(
-                p1_, s1, p2_, s2, f_, g, k, **kw)
-            return jnp.sum(o * w)
-
-        def loss_pre(args):
-            p1_, p2_, f_ = args
-            o, _, _ = layers.apply_edge_conv_stage_fused(
-                p1_, s1, p2_, s2, f_, g, k, reuse_idx=idx, **kw)
-            return jnp.sum(o * w)
-
-        g_sel = jax.grad(loss_sel)((p1, p2, f))
-        g_pre = jax.grad(loss_pre)((p1, p2, f))
-        for a, b_ in zip(jax.tree.leaves(g_sel), jax.tree.leaves(g_pre)):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b_),
-                                       rtol=1e-5, atol=1e-5)
-
-        # eval path
-        oe, _, _ = layers.apply_edge_conv_stage_fused(
-            p1, s1, p2, s2, f, g, k, training=False, bn_decay=0.9,
-            interpret=True)
-        oe_p, _, _ = layers.apply_edge_conv_stage_fused(
-            p1, s1, p2, s2, f, g, k, reuse_idx=idx, training=False,
-            bn_decay=0.9, interpret=True)
-        np.testing.assert_array_equal(np.asarray(oe), np.asarray(oe_p))
-
-    def test_single_conv_stage_pre_matches_selecting(self, rng):
-        import weaksuppointcloudseg_tpu.ops.neighbors as knn_ops
-
-        b, n, k, c, c1 = 2, 64, 6, 8, 16
-        f = jnp.asarray(rng.standard_normal((b, n, c)), jnp.float32)
-        g = jnp.asarray(rng.standard_normal((b, n, 3)), jnp.float32)
-        idx = knn_ops.knn_graph(g, k)
-        p1, s1 = layers.init_conv(jax.random.PRNGKey(12), 2 * c, c1)
-        kw = dict(training=True, bn_decay=0.9, interpret=True)
-
-        out, ns = layers.apply_edge_conv_stage1_fused(
-            p1, s1, f, g, k, **kw)
-        out_p, ns_p = layers.apply_edge_conv_stage1_fused(
-            p1, s1, f, g, k, reuse_idx=idx, **kw)
-        np.testing.assert_array_equal(np.asarray(out), np.asarray(out_p))
-        for key in ("mean", "var"):
-            np.testing.assert_allclose(
-                np.asarray(ns[key]), np.asarray(ns_p[key]), rtol=1e-6)
-
-        w = jnp.asarray(rng.standard_normal(out.shape), jnp.float32)
-
-        def loss(reuse):
-            def inner(args):
-                p_, f_ = args
-                o, _ = layers.apply_edge_conv_stage1_fused(
-                    p_, s1, f_, g, k, reuse_idx=reuse, **kw)
-                return jnp.sum(o * w)
-            return inner
-
-        g_sel = jax.grad(loss(None))((p1, f))
-        g_pre = jax.grad(loss(idx))((p1, f))
-        for a, b_ in zip(jax.tree.leaves(g_sel), jax.tree.leaves(g_pre)):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b_),
-                                       rtol=1e-5, atol=1e-5)
-
-        # eval path
-        oe, _ = layers.apply_edge_conv_stage1_fused(
-            p1, s1, f, g, k, training=False, bn_decay=0.9, interpret=True)
-        oe_p, _ = layers.apply_edge_conv_stage1_fused(
-            p1, s1, f, g, k, reuse_idx=idx, training=False, bn_decay=0.9,
-            interpret=True)
-        np.testing.assert_array_equal(np.asarray(oe), np.asarray(oe_p))
-
-
 class TestStaticGraphModel:
-    """ModelConfig.static_graph on the CPU/XLA path: runs train + eval,
+    """ModelConfig.static_graph: runs train + eval,
     gradients flow to every parameter, and the reused graph equals the
     input-coordinate kNN (checked against a hand-driven composition of
     the same stages fed that one graph)."""
@@ -484,7 +313,7 @@ class TestStaticGraphModel:
         assert bool(jnp.all(jnp.isfinite(logits)))
 
     def test_static_graph_is_the_input_graph(self, rng, monkeypatch):
-        """With static_graph (S3DIS preset, non-fused path), the ONLY kNN
+        """With static_graph (S3DIS preset), the ONLY kNN
         computation is the one on the input coordinates (channels 6:9),
         and every stage gathers along exactly that graph — verified by
         capturing the knn/gather call arguments. Also: the static model
@@ -495,16 +324,11 @@ class TestStaticGraphModel:
         apply_fn, cfg, params, state, x, cat = self._setup(rng, False)
 
         graphs, gathers = [], []
-        real_fused, real_graph = knn_ops.knn_graph_fused, knn_ops.knn_graph
+        real_nn = knn_ops.nearest_neighbors
         real_gather = knn_ops.gather_neighbors
 
-        def spy_fused(g, k, fast=False):
-            idx = real_fused(g, k, fast=fast)
-            graphs.append((np.asarray(g), np.asarray(idx)))
-            return idx
-
-        def spy_graph(g, k):
-            idx = real_graph(g, k)
+        def spy_nn(g, k, **kw):
+            idx = real_nn(g, k, **kw)
             graphs.append((np.asarray(g), np.asarray(idx)))
             return idx
 
@@ -512,20 +336,13 @@ class TestStaticGraphModel:
             gathers.append(np.asarray(idx))
             return real_gather(f, idx)
 
-        monkeypatch.setattr(knn_ops, "knn_graph_fused", spy_fused)
-        monkeypatch.setattr(knn_ops, "knn_graph", spy_graph)
+        monkeypatch.setattr(knn_ops, "nearest_neighbors", spy_nn)
         monkeypatch.setattr(knn_ops, "gather_neighbors", spy_gather)
 
         logits_s, _ = apply_fn(params, state, x, cat, cfg=cfg,
                                training=False, bn_decay=0.9)
         # exactly ONE graph computation, on the input's kNN channels
-        # (spy_fused falls back to the patched knn_graph off-TPU, so the
-        # same build may be recorded twice — dedupe identical entries)
-        uniq = []
-        for g, idx in graphs:
-            if not any(g.shape == ug.shape and np.array_equal(g, ug)
-                       for ug, _ in uniq):
-                uniq.append((g, idx))
+        uniq = graphs
         assert len(uniq) == 1, f"{len(uniq)} distinct graphs built"
         g_src, idx = uniq[0]
         lo, hi = cfg.knn_channels
@@ -544,9 +361,7 @@ class TestStaticGraphModel:
 
 
 def test_cls_static_graph_cpu(rng):
-    """ClsConfig.static_graph: train grads flow + eval finite on the
-    CPU/XLA path (the fused path shares the seg nets' reuse_idx stages,
-    covered by TestStaticGraphStages + the device suite)."""
+    """ClsConfig.static_graph: train grads flow + eval finite."""
     from weaksuppointcloudseg_tpu.models.dgcnn_cls import (
         ClsConfig,
         apply_dgcnn_cls,

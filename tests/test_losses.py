@@ -3,6 +3,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from weaksuppointcloudseg_tpu.losses import (
     masked_softmax_ce,
@@ -139,26 +140,51 @@ def test_losses_differentiable(rng):
     assert np.all(np.isfinite(np.asarray(g)))
 
 
-def test_smooth_loss_aggregate_identity(rng):
-    """The fused-path identity sum_j w_j|P_n - P_j|^2 =
-    s0|P_n|^2 - 2 P_n . s1 + s2 (losses/weaksup.py fused_bf16 branch),
-    evaluated here in f32 through the interpret-mode kernel so only f32
-    reassociation separates it from the direct formulation."""
-    from weaksuppointcloudseg_tpu.ops.edgeconv_pallas import (
-        knn_weighted_gather,
-    )
+def _np_smooth_grad(prob, idx, w):
+    """d loss / d prob of mean_{b,n,j} w_nj * mean_K (P_n - P_idx[n,j])^2."""
+    b, n, k = idx.shape
+    scale = 2.0 / (b * n * k * prob.shape[-1])
+    g = np.zeros_like(prob)
+    for bi in range(b):
+        diff = prob[bi][:, None, :] - prob[bi][idx[bi]]      # [N, k, K]
+        term = scale * w[bi][..., None] * diff
+        g[bi] += term.sum(axis=1)
+        np.add.at(g[bi], idx[bi].reshape(-1), -term.reshape(-1, prob.shape[-1]))
+    return g
 
-    B, N, K, k, gamma = 2, 48, 7, 6, 0.1
-    prob = jnp.asarray(_softmax(rng.normal(size=(B, N, K)).astype(np.float32)))
-    x = jnp.asarray(rng.normal(size=(B, N, 3)).astype(np.float32))
 
-    want = float(smooth_knn_laplacian(prob, x, gamma=gamma, k=k))
+@pytest.mark.parametrize("n", [64, 100])
+@pytest.mark.parametrize("preset", ["shapenet", "s3dis"])
+def test_smooth_loss_at_preset_channels(rng, preset, n):
+    """The plain smoothness loss on each preset's input and channel slice
+    (ShapeNet: xyz of a 3-channel input; S3DIS: xyzrgb, columns 0:6 of 9)
+    with its k and gamma: value and gradient against float64 NumPy."""
+    from weaksuppointcloudseg_tpu import configs
+    from weaksuppointcloudseg_tpu.ops import pairwise_sqdist
 
-    q = jnp.sum(jnp.square(prob), axis=-1)
-    f = jnp.concatenate([prob, q[..., None]], axis=-1)  # f32: exact
-    _, s, w = knn_weighted_gather(x, f, k, gamma, 256, True)
-    s0 = jnp.sum(w, axis=-1)
-    per_point = (s0 * q - 2.0 * jnp.sum(prob * s[..., :K], axis=-1)
-                 + s[..., K])
-    got = float(jnp.mean(per_point) / (k * K))
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-7)
+    cfg = getattr(configs, f"{preset}_config")()
+    w, m = cfg.weaksup, cfg.model
+    x = rng.normal(size=(2, n, m.in_channels)).astype(np.float32)
+    prob = _softmax(rng.normal(size=(2, n, m.num_classes))).astype(
+        np.float32)
+    lo, hi = w.smooth_channels or (0, m.in_channels)
+    # the op's own distances fix the neighbour order (ties included); the
+    # weights, the gather and the means are checked independently
+    d = np.asarray(pairwise_sqdist(jnp.asarray(x[..., lo:hi])), np.float64)
+    idx = np.argsort(d, axis=-1, kind="stable")[..., :w.smooth_knn]
+    wts = np.exp(-np.maximum(np.take_along_axis(d, idx, -1), 0.0)
+                 / w.smooth_gamma)
+    p64 = prob.astype(np.float64)
+    want = np_smooth_loss(p64, x, gamma=w.smooth_gamma, k=w.smooth_knn,
+                          d=np.maximum(d, 0.0))
+
+    def loss(p):
+        return smooth_knn_laplacian(
+            p, jnp.asarray(x), gamma=w.smooth_gamma, k=w.smooth_knn,
+            channels=w.smooth_channels)
+
+    got, grad = jax.value_and_grad(loss)(jnp.asarray(prob))
+    np.testing.assert_allclose(float(got), want, rtol=1e-4)
+    g_want = _np_smooth_grad(p64, idx, wts)
+    np.testing.assert_allclose(np.asarray(grad), g_want, rtol=1e-4,
+                               atol=1e-6 * np.abs(g_want).max())

@@ -2,7 +2,7 @@
 
 The numpy oracles re-derive the reference formulas (Util/Tool.py:435-467,
 Util/ProbLabelPropagation.py:21-42) independently: explicit inverse, explicit
-diagonal matrices — exactly the construction our TPU path avoids.
+diagonal matrices — exactly the construction the library avoids.
 """
 
 import numpy as np
@@ -148,7 +148,7 @@ def test_label_prop_confident_input_stays(cloud):
 
 
 def test_room_lp_beats_per_block_on_cross_block_structure():
-    """The accuracy case for --RoomLP (VERDICT r4 weak #4): objects
+    """The accuracy case for --RoomLP: objects
     straddling block boundaries whose confident predictions sit on one
     side. Per-block LP (the reference's semantics,
     S3DIS_DGCNN_trainer.py:539-556) cannot repair the corrupted half —
@@ -165,3 +165,28 @@ def test_room_lp_beats_per_block_on_cross_block_structure():
     res = roomlp_ab.run_modes(*roomlp_ab.make_room(rng))
     assert res["room"] > res["block"] + 0.1
     assert res["room"] > res["none"] + 0.1
+
+
+@pytest.mark.parametrize("with_rgb", [False, True], ids=["xyz", "xyzrgb"])
+@pytest.mark.parametrize("n,row_tile", [(60, 16), (97, 32), (150, 64)])
+def test_matfree_matches_dense_solve_when_tiles_do_not_divide(
+        rng, n, row_tile, with_rgb):
+    """Matrix-free CG (affinity rows recomputed per tile) against the
+    dense LU solve, at point counts the row tile does not divide (a
+    prime N falls back to one-row tiles)."""
+    from weaksuppointcloudseg_tpu.propagate.label_prop import (
+        label_propagation_matfree,
+    )
+
+    b, k = 2, 5
+    # ~0.04 between neighbours: exp(-1e3 d^2) couples each point to a few
+    xyz = rng.uniform(0, 0.2, (b, n, 3)).astype(np.float32)
+    rgb = (rng.uniform(0, 1, (b, n, 3)).astype(np.float32) if with_rgb
+           else xyz)
+    logits = rng.standard_normal((b, n, k)).astype(np.float32) * 2
+    g = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    dense = np.asarray(propagate_batch(xyz, g, rgb, solver="solve"))
+    got = np.asarray(label_propagation_matfree(
+        xyz, g, rgb, row_tile=row_tile, cg_iters=200))
+    np.testing.assert_allclose(got, dense, rtol=1e-2, atol=1e-3)
+    assert (got.argmax(-1) == dense.argmax(-1)).mean() >= 0.99

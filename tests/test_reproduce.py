@@ -62,7 +62,7 @@ def test_format_signature_rules(reproduce_mod, tmp_path):
 
 def test_validate_data_accepts_synthetic_and_rejects_corrupted(
         reproduce_mod, tmp_path, capsys):
-    """--validate-data (VERDICT r4 #7): the synthetic trees — which the
+    """--validate-data: the synthetic trees — which the
     loaders demonstrably consume — must validate clean; a corrupted tree
     (missing h5 shard, wrong h5 fields, misaligned room list) must fail
     with named problems so a real-data run elsewhere cannot die on
@@ -83,10 +83,10 @@ def test_validate_data_accepts_synthetic_and_rejects_corrupted(
     # the CLI wrapper: both OK -> no SystemExit
     reproduce_mod.main(["--validate-data", str(tmp_path)])
 
-    # corrupt ShapeNet: drop a listed h5 + break the test file list
-    os.remove(str(sn / "hdf5_data" / "ply_data_train0.h5"))
+    # corrupt ShapeNet: drop a listed shard + break the test file list
+    os.remove(str(sn / "hdf5_data" / "ply_data_train0.npz"))
     problems = reproduce_mod.validate_shapenet_data(str(sn))
-    assert any("ply_data_train0.h5" in p for p in problems)
+    assert any("ply_data_train0.npz" in p for p in problems)
 
     # corrupt S3DIS: room_filelist misaligned with the h5 block count
     with open(s3 / "room_filelist.txt", "a") as f:

@@ -1,18 +1,14 @@
-"""Fused-kernel x data-parallel validation (round-2 ADVICE, medium).
+"""Explicit shard_map data parallelism vs the single-device run.
 
-The SPMD partitioner cannot split a ``pallas_call`` over a sharded batch
-axis, so the fused bf16 blocks take an explicit ``axis_name`` under
-``shard_map`` and psum their in-kernel BN moment sums
-(models/layers.py::_psum_moments); the hand-written VJPs psum the BN
-correction terms while leaving dgamma/dbeta/db as local partials that the
-step-level gradient psum completes.
+Under ``shard_map`` every BN takes an explicit ``axis_name`` and pmeans
+its moments (cross-replica BN), the losses reduce globally, and the
+per-shard gradients are reduced by the step.
 
-These tests run every fused block the models use in interpret mode on the
-8-virtual-device CPU mesh, one batch row per device, and assert agreement
-with the single-device run: forward values, BN state, and ALL gradients
-(param grads psum'd, input grads shard-local). A step-level test does the
-same for the full shard_map train step (train/steps.py) vs the plain jit
-step.
+These tests run the model's blocks on the 8-virtual-device CPU mesh, one
+batch row per device, and assert agreement with the single-device run:
+forward values, BN state, and ALL gradients (param grads psum'd, input
+grads shard-local). Step-level tests do the same for the full shard_map
+train/eval steps (train/steps.py) vs the plain jit steps.
 """
 
 import dataclasses
@@ -96,90 +92,35 @@ def _run_block(mesh, local, p_args, sharded_args):
     return single, run(*p_args, *sharded_args)
 
 
-def test_whole_stage_fused_dp(mesh, rng):
-    """2-conv EdgeConv stage (the ShapeNet stage 1/2 block)."""
-    b, n, k, c, c2 = 8, 32, 4, 8, 10
+@pytest.mark.parametrize("widths", [(16,), (16, 12)])
+def test_edge_conv_stage_dp(mesh, rng, widths):
+    """A whole plain EdgeConv stage (gather + first conv + BN + relu
+    [+ second conv + BN + relu] + k-max) with cross-replica BN."""
+    b, n, c, k = 8, 40, 6, 5
     f = jnp.asarray(rng.standard_normal((b, n, c)), jnp.float32)
-    g = jnp.asarray(rng.standard_normal((b, n, 3)), jnp.float32)
-    R = jnp.asarray(rng.standard_normal((b, n, c2)), jnp.float32)
-    p1, p2 = _mk_params(2 * c, c2, 1), _mk_params(c2, c2, 2)
-    st = {"mean": jnp.zeros((c2,)), "var": jnp.ones((c2,))}
+    idx = jnp.asarray(knn_ops.knn_graph(f, k))
+    R = jnp.asarray(rng.standard_normal((b, n, widths[-1])), jnp.float32)
+    ps = tuple(_mk_params(ci, co, 7 + i) for i, (ci, co) in
+               enumerate(zip((2 * c,) + widths[:-1], widths)))
 
-    def local(axis_name, p1, p2, f, g, R):
-        def loss_fn(p1, p2, f):
-            out, ns1, ns2 = layers.apply_edge_conv_stage_fused(
-                p1, st, p2, st, f, g, k, interpret=True,
-                axis_name=axis_name, **KW)
-            return jnp.sum(out * R), (ns1, ns2)
+    def local(axis_name, ps, f, idx, R):
+        def loss_fn(ps, f):
+            kw = dict(axis_name=axis_name, **KW)
+            st = {"mean": jnp.zeros((widths[0],)),
+                  "var": jnp.ones((widths[0],))}
+            h, ns = layers.apply_edge_conv(
+                ps[0], st, f, knn_ops.gather_neighbors(f, idx), **kw)
+            states = [ns]
+            for p_i, w in zip(ps[1:], widths[1:]):
+                st = {"mean": jnp.zeros((w,)), "var": jnp.ones((w,))}
+                h, ns = layers.apply_conv(p_i, st, h, **kw)
+                states.append(ns)
+            return jnp.sum(jnp.max(h, axis=2) * R), states
         (l, aux), grads = jax.value_and_grad(
-            loss_fn, argnums=(0, 1, 2), has_aux=True)(p1, p2, f)
-        return l, aux, (grads[0], grads[1], grads[2])
-
-    single, sharded = _run_block(mesh, local, (p1, p2), (f, g, R))
-    _compare(single, sharded)
-
-
-def test_stage1_fused_dp(mesh, rng):
-    """Single-conv EdgeConv stage (ShapeNet stage 3 / classifier stages)."""
-    b, n, k, c, c2 = 8, 32, 4, 10, 12
-    f = jnp.asarray(rng.standard_normal((b, n, c)), jnp.float32)
-    g = jnp.asarray(rng.standard_normal((b, n, 3)), jnp.float32)
-    R = jnp.asarray(rng.standard_normal((b, n, c2)), jnp.float32)
-    p1 = _mk_params(2 * c, c2, 3)
-    st = {"mean": jnp.zeros((c2,)), "var": jnp.ones((c2,))}
-
-    def local(axis_name, p1, f, g, R):
-        def loss_fn(p1, f):
-            out, ns = layers.apply_edge_conv_stage1_fused(
-                p1, st, f, g, k, interpret=True, axis_name=axis_name, **KW)
-            return jnp.sum(out * R), ns
-        (l, aux), grads = jax.value_and_grad(
-            loss_fn, argnums=(0, 1), has_aux=True)(p1, f)
+            loss_fn, argnums=(0, 1), has_aux=True)(ps, f)
         return l, aux, grads
 
-    single, sharded = _run_block(mesh, local, (p1,), (f, g, R))
-    _compare(single, sharded)
-
-
-def test_conv_kmax_fused_dp(mesh, rng):
-    """conv + BN + relu + k-max on pre-gathered edge features."""
-    b, n, k, c, c2 = 8, 24, 4, 8, 10
-    h = jnp.asarray(rng.standard_normal((b, n, k, c)), jnp.float32)
-    R = jnp.asarray(rng.standard_normal((b, n, c2)), jnp.float32)
-    p = _mk_params(c, c2, 4)
-    st = {"mean": jnp.zeros((c2,)), "var": jnp.ones((c2,))}
-
-    def local(axis_name, p, h, R):
-        def loss_fn(p, h):
-            out, ns = layers.apply_conv_bn_relu_kmax(
-                p, st, h, interpret=True, axis_name=axis_name, **KW)
-            return jnp.sum(out * R), ns
-        (l, aux), grads = jax.value_and_grad(
-            loss_fn, argnums=(0, 1), has_aux=True)(p, h)
-        return l, aux, grads
-
-    single, sharded = _run_block(mesh, local, (p,), (h, R))
-    _compare(single, sharded)
-
-
-def test_conv_nmax_fused_dp(mesh, rng):
-    """Aggregation conv + BN + relu + N-max (global feature block)."""
-    b, n, c, c2 = 8, 40, 12, 16
-    h = jnp.asarray(rng.standard_normal((b, n, c)), jnp.float32)
-    R = jnp.asarray(rng.standard_normal((b, c2)), jnp.float32)
-    p = _mk_params(c, c2, 5)
-    st = {"mean": jnp.zeros((c2,)), "var": jnp.ones((c2,))}
-
-    def local(axis_name, p, h, R):
-        def loss_fn(p, h):
-            out, ns = layers.apply_conv_bn_relu_nmax(
-                p, st, h, interpret=True, axis_name=axis_name, **KW)
-            return jnp.sum(out * R), ns
-        (l, aux), grads = jax.value_and_grad(
-            loss_fn, argnums=(0, 1), has_aux=True)(p, h)
-        return l, aux, grads
-
-    single, sharded = _run_block(mesh, local, (p,), (h, R))
+    single, sharded = _run_block(mesh, local, (ps,), (f, idx, R))
     _compare(single, sharded)
 
 
@@ -315,52 +256,3 @@ def test_shardmap_eval_step_matches_jit_step(mesh):
                                rtol=1e-4, atol=1e-6)
 
 
-def test_whole_stage_pre_fused_dp(mesh, rng):
-    """Static-graph 2-conv stage (reuse_idx): the pre kernel's in-kernel
-    BN moments must psum identically to the selecting stage's under DP."""
-    b, n, k, c, c2 = 8, 32, 4, 8, 10
-    f = jnp.asarray(rng.standard_normal((b, n, c)), jnp.float32)
-    g = jnp.asarray(rng.standard_normal((b, n, 3)), jnp.float32)
-    R = jnp.asarray(rng.standard_normal((b, n, c2)), jnp.float32)
-    idx = knn_ops.knn_graph(g, k)
-    p1, p2 = _mk_params(2 * c, c2, 5), _mk_params(c2, c2, 6)
-    st = {"mean": jnp.zeros((c2,)), "var": jnp.ones((c2,))}
-
-    def local(axis_name, p1, p2, f, idx, R):
-        def loss_fn(p1, p2, f):
-            out, ns1, ns2 = layers.apply_edge_conv_stage_fused(
-                p1, st, p2, st, f, None, k, interpret=True,
-                reuse_idx=idx, axis_name=axis_name, **KW)
-            return jnp.sum(out * R), (ns1, ns2)
-        (l, aux), grads = jax.value_and_grad(
-            loss_fn, argnums=(0, 1, 2), has_aux=True)(p1, p2, f)
-        return l, aux, (grads[0], grads[1], grads[2])
-
-    single, sharded = _run_block(mesh, local, (p1, p2), (f, idx, R))
-    # db1/db2 cancel to ~0 over the random-sign cotangent: the psum's
-    # reassociation noise needs a slightly higher absolute floor
-    _compare(single, sharded, atol=1e-4)
-
-
-def test_stage1_pre_fused_dp(mesh, rng):
-    """Static-graph single-conv stage (reuse_idx) under DP."""
-    b, n, k, c, c2 = 8, 32, 4, 10, 12
-    f = jnp.asarray(rng.standard_normal((b, n, c)), jnp.float32)
-    g = jnp.asarray(rng.standard_normal((b, n, 3)), jnp.float32)
-    R = jnp.asarray(rng.standard_normal((b, n, c2)), jnp.float32)
-    idx = knn_ops.knn_graph(g, k)
-    p1 = _mk_params(2 * c, c2, 7)
-    st = {"mean": jnp.zeros((c2,)), "var": jnp.ones((c2,))}
-
-    def local(axis_name, p1, f, idx, R):
-        def loss_fn(p1, f):
-            out, ns = layers.apply_edge_conv_stage1_fused(
-                p1, st, f, None, k, interpret=True, reuse_idx=idx,
-                axis_name=axis_name, **KW)
-            return jnp.sum(out * R), ns
-        (l, aux), grads = jax.value_and_grad(
-            loss_fn, argnums=(0, 1), has_aux=True)(p1, f)
-        return l, aux, grads
-
-    single, sharded = _run_block(mesh, local, (p1,), (f, idx, R))
-    _compare(single, sharded, atol=1e-4)

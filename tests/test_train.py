@@ -97,7 +97,7 @@ class TestShapeNetTraining:
     def test_threefry_rng_impl_compat(self, shapenet_dir):
         """The bit-reproducibility opt-out (configs.py TrainConfig.rng_impl
         = "threefry2x32") still trains: the default per-step stream is
-        "rbg" (hardware RngBitGenerator; 3.5 ms/step cheaper on v5e)."""
+        "rbg" (XLA's RngBitGenerator, cheaper than threefry)."""
         cfg = tiny_shapenet_cfg("Plain")
         cfg = dataclasses.replace(
             cfg, train=dataclasses.replace(cfg.train,
@@ -302,46 +302,20 @@ class TestDataParallel:
         assert np.isfinite(m["total"])
 
 
-def test_fused_bf16_multi_device_routes_shardmap(shapenet_dir, monkeypatch):
-    """bf16 fused kernels x DP: the SPMD partitioner cannot split a
-    pallas_call over the sharded batch axis, so the trainer must route
-    that combination through the explicit shard_map step (train/loop.py;
-    the step itself is validated by tests/test_shardmap_dp.py). The fake
-    TPU backend is patched into loop only — the model still sees CPU and
-    takes the unfused path, so the epoch exercises the shard_map step's
-    collectives end-to-end."""
-    import weaksuppointcloudseg_tpu.train.loop as loop_mod
-
-    from conftest import FakeTpuJax
-
-    monkeypatch.setattr(loop_mod, "jax", FakeTpuJax())
-    ds = shapenet.ShapeNetDataset(shapenet_dir)
-    cfg = tiny_shapenet_cfg("Plain", batch_size=8)
-    cfg = dataclasses.replace(
-        cfg, model=dataclasses.replace(cfg.model, compute_dtype="bfloat16"))
-    t = ShapeNetTrainer(cfg, ds, None, num_devices=8)
-    assert t.mesh is not None
-    m = t.train_epoch()
-    assert np.isfinite(m["seg"])
-
-
 def test_make_eval_logits_fn_single_composition():
-    """make_eval_logits_fn is the ONE eval composition (round-4 unification):
-    make_eval_step and both trainers' test loops route through it. On CPU
-    the pad-once path is gated off (eval_pad_supported requires the fused
-    bf16/TPU kernels), so it must equal the plain forward exactly — and
-    accept both the cat-conditioned (ShapeNet) and plain (S3DIS)
-    call shapes the trainers use."""
+    """make_eval_logits_fn is the ONE eval composition: make_eval_step and
+    both trainers' test loops route through it. It must equal the plain
+    forward exactly — and accept both the cat-conditioned (ShapeNet) and
+    plain (S3DIS) call shapes the trainers use."""
     from weaksuppointcloudseg_tpu.train.state import create_train_state
     from weaksuppointcloudseg_tpu.train.steps import (
-        eval_pad_supported, make_eval_logits_fn, make_forward_fn)
+        make_eval_logits_fn, make_forward_fn)
     from weaksuppointcloudseg_tpu.utils.tools import onehot_encode
 
     rng = np.random.default_rng(3)
     cfg = tiny_shapenet_cfg("Plain", batch_size=2)
-    assert not eval_pad_supported(cfg.model)  # CPU: pad path off
     state = create_train_state(jax.random.PRNGKey(0), cfg)
-    x = rng.standard_normal((2, 50, 3)).astype(np.float32)  # unaligned N
+    x = rng.standard_normal((2, 50, 3)).astype(np.float32)
     cat = onehot_encode(np.array([1, 2]), cfg.model.num_categories)
     logits = make_eval_logits_fn(cfg)(state, x, cat)
     want, _ = make_forward_fn(cfg)(
@@ -362,8 +336,7 @@ def test_convergence_recipe_eval_tail_smoke():
     eval path runs end-to-end at a tiny shape, and the coupled-mode
     misuse (eval_tail without data_seed) raises instead of silently
     perturbing the training rng stream. The calibrated 1024-pt recipe
-    itself is exercised on device (test_tpu_kernels.py) and by
-    scripts/convergence_ab.py."""
+    itself runs through scripts/convergence_ab.py."""
     import pytest
 
     from weaksuppointcloudseg_tpu.utils.synth_convergence import (
@@ -371,10 +344,10 @@ def test_convergence_recipe_eval_tail_smoke():
     )
 
     m = shapenet_train_and_eval_miou(
-        "float32", False, seed=0, epochs=2, data_seed=0, eval_tail=2,
+        "float32", seed=0, epochs=2, data_seed=0, eval_tail=2,
         n_points=128, bs=4)
     assert 0.0 <= m <= 1.0
     with pytest.raises(ValueError, match="data_seed"):
         shapenet_train_and_eval_miou(
-            "float32", False, seed=0, epochs=2, eval_tail=2,
+            "float32", seed=0, epochs=2, eval_tail=2,
             n_points=128, bs=4)

@@ -1,4 +1,4 @@
-"""weaksuppointcloudseg_tpu — TPU-native weakly supervised point cloud segmentation.
+"""weaksuppointcloudseg_tpu — weakly supervised point cloud segmentation in JAX.
 
 A from-scratch JAX / XLA / Pallas framework with the capabilities of
 alex-xun-xu/WeakSupPointCloudSeg (CVPR 2020, "Weakly Supervised Semantic Point

@@ -3,9 +3,10 @@
 The reference duplicates one argparse block across its four entry points
 (train_ShapeNet.py:24-38, train_S3DIS.py:24-39, test_*.py); the flag names
 and defaults here are kept drop-in identical (-er, -ep, -rp, -bs, -m, -sty,
--net, -ta, -dt), with TPU-native additions: --DataPath (the reference
-hard-codes ./Dataset/<ds>), --num_devices (data-parallel mesh size), --seed.
---GPU is accepted for compatibility and ignored (device selection is JAX's).
+-net, -ta, -dt), with additions: --DataPath (the reference hard-codes
+./Dataset/<ds>), --num_devices (data-parallel mesh size), --seed. --GPU is
+accepted for compatibility and ignored: cards are chosen with
+CUDA_VISIBLE_DEVICES.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ from weaksuppointcloudseg_tpu import configs
 def base_parser(dataset: str, *, train: bool) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Take parameters")
     p.add_argument("--GPU", "-gpu", type=int, default=0,
-                   help="accepted for reference compatibility; ignored on TPU")
+                   help="accepted for reference compatibility and ignored: "
+                        "choose cards with CUDA_VISIBLE_DEVICES")
     p.add_argument("--m", "-m", type=float, default=0.1,
                    help="ratio of points labelled (0.01=1%%, 0.1=10%%, 1=100%%)")
     p.add_argument("--Network", "-net", type=str, default="DGCNN",
@@ -36,13 +38,7 @@ def base_parser(dataset: str, *, train: bool) -> argparse.ArgumentParser:
                    choices=["float32", "bfloat16"],
                    help="compute dtype for matmul-heavy ops (params / BN "
                         "stats / logits stay fp32). Default keeps the "
-                        "preset's float32 reference-parity path; bfloat16 "
-                        "+ --FastKNN is the recommended TPU production "
-                        "config (docs/kernels.md)")
-    p.add_argument("--FastKNN", action="store_true",
-                   help="packed-min top-k selection (~10%% faster step; "
-                        "near-tie neighbors may reorder, 98.7-99.7%% index "
-                        "agreement)")
+                        "preset's float32 reference-parity path")
     p.add_argument("--StaticGraph", action="store_true",
                    help="opt-in static-graph EdgeConv: ONE input-coordinate "
                         "kNN graph reused by every stage (NOT reference "
@@ -51,8 +47,7 @@ def base_parser(dataset: str, *, train: bool) -> argparse.ArgumentParser:
     p.add_argument("--profile", type=str, default=None, metavar="DIR",
                    help="capture a jax.profiler device trace into DIR "
                         "(training: one post-compile epoch; view with "
-                        "TensorBoard/xprof, or parse with "
-                        "scripts/bench_attribution.py)")
+                        "TensorBoard/xprof)")
     p.add_argument("--debug_nans", action="store_true",
                    help="run with jax_debug_nans: error out at the first "
                         "NaN-producing op (debug runs only — disables some "
@@ -162,8 +157,6 @@ def build_config(args, dataset: str) -> configs.ExperimentConfig:
     model = cfg.model
     if getattr(args, "Precision", None):
         model = dataclasses.replace(model, compute_dtype=args.Precision)
-    if getattr(args, "FastKNN", False):
-        model = dataclasses.replace(model, knn_fast=True)
     if getattr(args, "StaticGraph", False):
         model = dataclasses.replace(model, static_graph=True)
     return dataclasses.replace(cfg, model=model, train=train,

@@ -29,8 +29,14 @@ def main(argv=None) -> None:
                    help="serving point count (default: model preset)")
     p.add_argument("--num_classes", type=int, default=None)
     p.add_argument("--num_categories", type=int, default=None)
-    p.add_argument("--platforms", type=str, default="cpu,tpu")
+    p.add_argument("--platforms", type=str, default="cpu,cuda")
     args = p.parse_args(argv)
+
+    from weaksuppointcloudseg_tpu.utils.compile_cache import (
+        init_compile_cache,
+    )
+
+    init_compile_cache()
 
     from weaksuppointcloudseg_tpu import configs
     from weaksuppointcloudseg_tpu.train.state import create_train_state

@@ -16,6 +16,7 @@ import scipy.io as scio
 from weaksuppointcloudseg_tpu.cli import common
 from weaksuppointcloudseg_tpu.data import s3dis as s3dis_data
 from weaksuppointcloudseg_tpu.train.loop import S3DISTrainer
+from weaksuppointcloudseg_tpu.utils.compile_cache import init_compile_cache
 
 S3DIS_CLASSES = [
     "ceiling", "floor", "wall", "beam", "column", "window", "door",
@@ -24,7 +25,7 @@ S3DIS_CLASSES = [
 ]
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
     p = common.base_parser("S3DIS", train=False)
     p.add_argument("--test_area", "-ta", type=int, default=5)
     p.add_argument("--RoomsPath", type=str, default=None,
@@ -39,6 +40,7 @@ def main(argv=None) -> None:
                         "for the Full style); ignored with a warning "
                         "otherwise")
     args = p.parse_args(argv)
+    init_compile_cache()
     args.Epoch = 1
     cfg = common.build_config(args, "S3DIS")
     data_path = args.DataPath or "./Dataset/S3DIS/indoor3d_sem_seg_hdf5_data"
@@ -73,6 +75,7 @@ def main(argv=None) -> None:
             os.path.join(pred_dir, "PerClassIoU.mat"),
             {"per_class_iou": np.asarray(res["per_class_iou"])},
         )
+    return res
 
 
 if __name__ == "__main__":

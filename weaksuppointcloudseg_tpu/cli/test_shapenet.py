@@ -12,14 +12,16 @@ import os
 from weaksuppointcloudseg_tpu.cli import common
 from weaksuppointcloudseg_tpu.data import shapenet as shapenet_data
 from weaksuppointcloudseg_tpu.train.loop import ShapeNetTrainer
+from weaksuppointcloudseg_tpu.utils.compile_cache import init_compile_cache
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
     p = common.base_parser("ShapeNet", train=False)
     p.add_argument("--num_points", type=int, default=3000,
                    help="fixed resample size at test time "
                         "(ShapeNet_DGCNN_trainer.py:530-535)")
     args = p.parse_args(argv)
+    init_compile_cache()
     args.Epoch = 1
     cfg = common.build_config(args, "ShapeNet")
     data_path = args.DataPath or "./Dataset/ShapeNet"
@@ -61,6 +63,7 @@ def main(argv=None) -> None:
     for name, iou in zip(ds.meta.objnames, res["per_category_iou"]):
         if not np.isnan(iou):
             print(f"  {name:12s} IoU {100 * iou:.2f}%")
+    return res
 
 
 if __name__ == "__main__":

@@ -19,6 +19,7 @@ from weaksuppointcloudseg_tpu.cli import common
 from weaksuppointcloudseg_tpu.data import sampling
 from weaksuppointcloudseg_tpu.data import s3dis as s3dis_data
 from weaksuppointcloudseg_tpu.train.loop import S3DISTrainer
+from weaksuppointcloudseg_tpu.utils.compile_cache import init_compile_cache
 from weaksuppointcloudseg_tpu.utils.tools import Summary
 
 
@@ -27,6 +28,7 @@ def main(argv=None) -> None:
     p.add_argument("--test_area", "-ta", type=int, default=5,
                    help="Test area 1 to 6")
     args = p.parse_args(argv)
+    init_compile_cache()
     cfg = common.build_config(args, "S3DIS")
     data_path = args.DataPath or "./Dataset/S3DIS/indoor3d_sem_seg_hdf5_data"
 

@@ -16,11 +16,13 @@ from weaksuppointcloudseg_tpu.cli import common
 from weaksuppointcloudseg_tpu.data import sampling
 from weaksuppointcloudseg_tpu.data import shapenet as shapenet_data
 from weaksuppointcloudseg_tpu.train.loop import ShapeNetTrainer
+from weaksuppointcloudseg_tpu.utils.compile_cache import init_compile_cache
 from weaksuppointcloudseg_tpu.utils.tools import Summary
 
 
 def main(argv=None) -> None:
     args = common.base_parser("ShapeNet", train=True).parse_args(argv)
+    init_compile_cache()
     cfg = common.build_config(args, "ShapeNet")
     data_path = args.DataPath or "./Dataset/ShapeNet"
 

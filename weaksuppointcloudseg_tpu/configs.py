@@ -67,27 +67,14 @@ class ModelConfig:
     head_bn_fixed_decay: Optional[float] = None
     # compute dtype for matmul-heavy ops (params & BN stats stay fp32)
     compute_dtype: str = "float32"
-    # fused Pallas distance+top-k kernel for the EdgeConv graphs (TPU only;
-    # non-TPU backends silently use the XLA path)
-    use_fused_knn: bool = True
-    # packed-min top-k selection: ~10% faster step, but near-tie neighbors
-    # may reorder vs lax.top_k (98.7-99.7% index agreement) — opt-in
-    knn_fast: bool = False
     # STATIC-graph EdgeConv (opt-in, NOT reference parity): the kNN graph
     # is built ONCE on the model's input coordinates (the transform
     # branch's graph on ShapeNet; the first stage's on S3DIS) and reused
     # by every later EdgeConv stage instead of recomputing kNN in feature
     # space per stage (the reference's dynamic graph, DGCNN_ShapeNet.py:
-    # 30-66 / tf_util.py:638-706). Removes ~3 VPU selection passes per
-    # round per reused stage — a documented speed/accuracy trade (see
-    # docs/kernels.md round 3 for measured step time + convergence A/B).
+    # 30-66 / tf_util.py:638-706). Removes the kNN selection of every
+    # reused stage — a speed/accuracy trade (docs/kernels.md).
     static_graph: bool = False
-    # The straight (non-fused) conv+BN+k-max composition miscompiles to
-    # identically-zero upstream gradients for bf16 training on this TPU
-    # backend (docs/kernels.md "bf16 conv+BN+reduce-max(axis=2)"); such a
-    # config raises by default. Set True to run it anyway (e.g. to study
-    # the miscompile, or on a backend known to be fixed).
-    allow_known_bad_bf16: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,11 +112,10 @@ class LabelPropConfig:
     # rows recomputed in the matvec — no [B,N,N] ever built; the 32k+/room
     # mode) | "sharded" (point-axis-sharded matrix-free CG over the mesh,
     # propagate/sharded.py).
-    # Data behind the default (docs/kernels.md round 5, v5e, B=32 N=3000):
-    # cg = 0.56 ms/sample vs solve = 9.9 ms/sample; CG hits rel-tol 1e-5 at
-    # ~12 iterations and its argmax agrees with the LU solution on 99.97%
-    # of points (identical synthetic-mIoU LP benefit); cg_iters=50 is a
-    # safety CAP above the ~12-iteration early exit, not a fixed count.
+    # CG hits rel-tol 1e-5 at ~12 iterations on trained-confidence inputs
+    # and its argmax agrees with the LU solution on 99.97% of points
+    # (identical synthetic-mIoU LP benefit, docs/kernels.md); cg_iters=50
+    # is a safety CAP above the early exit, not a fixed count.
     solver: str = "cg"
     cg_iters: int = 50
     cg_tol: float = 1e-5
@@ -146,11 +132,11 @@ class TrainConfig:
     seed: int = 0
     num_devices: int = 1  # data-parallel mesh size
     # PRNG implementation for the training streams (dropout masks etc.).
-    # "rbg" rides XLA's hardware-accelerated RngBitGenerator — threefry
-    # mask generation measured 3.6 ms/step of the flagship train step on
-    # v5e (100.1 -> 96.5 ms); rbg's weaker split/fold_in independence
-    # guarantees are irrelevant for dropout. Set "threefry2x32" for
-    # bit-reproducibility with JAX's default streams.
+    # "rbg" rides XLA's RngBitGenerator, cheaper than threefry mask
+    # generation; its weaker split/fold_in independence guarantees are
+    # irrelevant for dropout. Set "threefry2x32" for bit-reproducibility
+    # with JAX's default streams. (Chosen on the previous accelerator;
+    # not yet re-measured on a GPU.)
     rng_impl: str = "rbg"
 
 

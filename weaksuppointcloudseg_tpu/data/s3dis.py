@@ -2,8 +2,9 @@
 
 Rebuild of S3DIS/DataIO_S3DIS.py:
 
-- ``S3DISDataset``: loads every h5 block shard listed in ``all_files.txt``
-  (fields ``data`` [S,4096,9], ``label`` [S,4096] — DataIO_S3DIS.py:36-58)
+- ``S3DISDataset``: loads every block shard listed in ``all_files.txt``
+  (fields ``data`` [S,4096,9], ``label`` [S,4096] — DataIO_S3DIS.py:36-58;
+  the reference's ``.h5`` or ``.npz`` with the same fields, data/shards.py)
   and splits train/test by matching ``Area_<k>`` against ``room_filelist.txt``
   (DataIO_S3DIS.py:60-83).
 - ``room_to_blocks``: the test-time 1m x 1m block sweep with >=100-pt filter,
@@ -28,14 +29,15 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from weaksuppointcloudseg_tpu.data.shards import read_shard, write_shard
+
 NUM_CLASSES = 13
 
 
-def load_h5(path: str) -> Tuple[np.ndarray, np.ndarray]:
-    import h5py
-
-    with h5py.File(path, "r") as f:
-        return np.asarray(f["data"][:], np.float32), np.asarray(f["label"][:], np.int32)
+def load_block_shard(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """Read one .h5/.npz block shard -> (data [S,N,9], label [S,N])."""
+    f = read_shard(path)
+    return np.asarray(f["data"], np.float32), np.asarray(f["label"], np.int32)
 
 
 def weak_class_onehot(seg: np.ndarray, num_classes: int = NUM_CLASSES) -> np.ndarray:
@@ -55,7 +57,7 @@ class Batch:
 
 
 class S3DISDataset:
-    """All-blocks h5 load + area-based train/test split."""
+    """All-blocks shard load + area-based train/test split."""
 
     def __init__(self, h5filepath: str, num_classes: int = NUM_CLASSES):
         self.base = h5filepath
@@ -74,7 +76,7 @@ class S3DISDataset:
         for fname in self.all_files:
             # reference keeps only the basename after the first '/'
             # (DataIO_S3DIS.py:54)
-            d, l = load_h5(os.path.join(self.base, os.path.basename(fname)))
+            d, l = load_block_shard(os.path.join(self.base, os.path.basename(fname)))
             datas.append(d)
             labels.append(l)
         self._data = np.concatenate(datas)
@@ -264,14 +266,17 @@ def write_synthetic(
     blocks_per_room: int = 4,
     num_points: int = 128,
     num_classes: int = NUM_CLASSES,
+    room_xy: Tuple[float, float] = (2.0, 2.0),
     seed: int = 0,
 ) -> None:
-    """Miniature S3DIS-format dataset: h5 block shards + raw .npy test rooms.
+    """Miniature S3DIS-format dataset: .npz block shards + raw .npy test
+    rooms.
 
     Class labels correlate with height (z) so segmentation is learnable.
+    ``room_xy`` is each raw room's floor extent in meters; a room yields
+    about ``ceil(x) * ceil(y)`` 1 m blocks (``blocks_per_room`` caps the
+    training blocks kept per room).
     """
-    import h5py
-
     rng = np.random.default_rng(seed)
     os.makedirs(os.path.join(base_dir, "meta"), exist_ok=True)
 
@@ -280,9 +285,9 @@ def write_synthetic(
     for a in areas:
         for r in range(num_rooms_per_area):
             room_name = f"Area_{a}_room_{r}"
-            # raw room: points in a 2m x 2m x 3m box
+            # raw room: points in a room_xy x 3m box
             n_raw = blocks_per_room * num_points * 2
-            xyz = rng.uniform([0, 0, 0], [2.0, 2.0, 3.0], (n_raw, 3))
+            xyz = rng.uniform([0, 0, 0], [*room_xy, 3.0], (n_raw, 3))
             rgb = rng.uniform(0, 255, (n_raw, 3))
             lab = np.minimum(
                 (xyz[:, 2] / 3.0 * num_classes).astype(np.int64), num_classes - 1
@@ -303,11 +308,10 @@ def write_synthetic(
 
     data = np.concatenate(all_data).astype(np.float32)
     labels = np.concatenate(all_labels).astype(np.int32)
-    with h5py.File(os.path.join(base_dir, "ply_data_all_0.h5"), "w") as f:
-        f.create_dataset("data", data=data)
-        f.create_dataset("label", data=labels)
+    write_shard(os.path.join(base_dir, "ply_data_all_0.npz"),
+                data=data, label=labels)
     with open(os.path.join(base_dir, "all_files.txt"), "w") as f:
-        f.write("data/ply_data_all_0.h5\n")
+        f.write("data/ply_data_all_0.npz\n")
     with open(os.path.join(base_dir, "room_filelist.txt"), "w") as f:
         f.write("\n".join(room_rows) + "\n")
     for a in areas:

@@ -5,15 +5,16 @@ Rebuild of ShapeNet/DataIO_ShapeNet.py (class ``ShapeNetIO``):
 - category / part-id maps from ``hdf5_data`` (all_object_categories.txt,
   overallid_to_catid_partid.json, catid_partid_to_overallid.json —
   DataIO_ShapeNet.py:18-50; NUM_CATEGORIES=16, NUM_PART_CATS=50).
-- train/val h5 concatenation (fields ``data`` [S,2048,3], ``label`` [S,1],
-  ``pid`` [S,2048] — DataIO_ShapeNet.py:317-325).
+- train/val shard concatenation (fields ``data`` [S,2048,3], ``label``
+  [S,1], ``pid`` [S,2048] — DataIO_ShapeNet.py:317-325); shards are the
+  reference's ``.h5`` or ``.npz`` with the same fields (data/shards.py).
 - test set from raw .pts/.seg files listed in testing_ply_file_list.txt with
   part-id remapping via catid_partid -> overall id and unit-sphere
   normalization (DataIO_ShapeNet.py:122-142, 235-344).
 - per-sample weak category one-hot derived from seg labels
   (DataIO_ShapeNet.py:188-192) — vectorized here.
 
-TPU-first design: instead of the reference's stateful pointer loader, a
+Design: instead of the reference's stateful pointer loader, a
 dataset object yields *fixed-shape* numpy batches (drop-last for training,
 zero-pad + valid-count for eval) so every jit signature is compiled once.
 ``write_synthetic`` produces a miniature self-consistent dataset for tests,
@@ -25,12 +26,18 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from weaksuppointcloudseg_tpu.data.shards import read_shard, write_shard
+
 NUM_CATEGORIES = 16
 NUM_PART_CATS = 50
+# parts per category of the real dataset, in its category order (airplane,
+# bag, cap, car, chair, earphone, guitar, knife, lamp, laptop, motorbike,
+# mug, pistol, rocket, skateboard, table): 50 part classes in all
+SHAPENET_PARTS = (4, 2, 2, 4, 4, 3, 3, 2, 4, 2, 6, 2, 3, 3, 3, 3)
 
 
 @dataclasses.dataclass
@@ -73,14 +80,10 @@ class ShapeNetMeta:
         return self.object2setofoid[self.objcats[category_index]]
 
 
-def load_h5_seg(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Read one h5 shard -> (data [S,N,3], label [S], seg [S,N])."""
-    import h5py
-
-    with h5py.File(path, "r") as f:
-        data = f["data"][:]
-        label = f["label"][:]
-        seg = f["pid"][:]
+def load_seg_shard(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Read one .h5/.npz shard -> (data [S,N,3], label [S], seg [S,N])."""
+    f = read_shard(path)
+    data, label, seg = f["data"], f["label"], f["pid"]
     return (
         np.asarray(data, np.float32),
         np.asarray(label).reshape(-1).astype(np.int32),
@@ -161,7 +164,7 @@ class Batch:
 
 
 class ShapeNetDataset:
-    """Train/val splits concatenated from the hdf5 shard lists."""
+    """Train/val splits concatenated from the shard lists."""
 
     def __init__(self, base_dir: str):
         self.base_dir = base_dir
@@ -174,7 +177,7 @@ class ShapeNetDataset:
             files = [line.strip() for line in f if line.strip()]
         datas, labels, segs = [], [], []
         for fname in files:
-            d, l, s = load_h5_seg(os.path.join(self.h5_base_path, os.path.basename(fname)))
+            d, l, s = load_seg_shard(os.path.join(self.h5_base_path, os.path.basename(fname)))
             datas.append(d)
             labels.append(l)
             segs.append(s)
@@ -255,7 +258,7 @@ def write_synthetic(
     base_dir: str,
     *,
     num_categories: int = 4,
-    parts_per_category: int = 3,
+    parts_per_category: Union[int, Sequence[int]] = 3,
     train_samples: int = 32,
     val_samples: int = 8,
     test_samples: int = 4,
@@ -266,9 +269,17 @@ def write_synthetic(
 
     Shapes are per-category Gaussian clusters with spatially coherent part
     labels (parts split along z), so segmentation is actually learnable.
+    ``parts_per_category`` is one count for every category or one per
+    category (``SHAPENET_PARTS`` gives the real dataset's 50 part classes).
+    Block shards are written as ``.npz``.
     """
-    import h5py
-
+    parts = ([parts_per_category] * num_categories
+             if isinstance(parts_per_category, int)
+             else list(parts_per_category))
+    if len(parts) != num_categories:
+        raise ValueError(f"{len(parts)} part counts for {num_categories} "
+                         "categories")
+    first_oid = np.concatenate([[0], np.cumsum(parts)[:-1]]).astype(int)
     rng = np.random.default_rng(seed)
     h5dir = os.path.join(base_dir, "hdf5_data")
     part_dir = os.path.join(base_dir, "PartAnnotation")
@@ -280,7 +291,7 @@ def write_synthetic(
 
     oid2cpid, cpid2oid = [], {}
     for c, (_name, cid) in enumerate(cats):
-        for p in range(parts_per_category):
+        for p in range(parts[c]):
             cpid2oid[f"{cid}_{p + 1}"] = len(oid2cpid)
             oid2cpid.append([cid, p + 1])
     with open(os.path.join(h5dir, "overallid_to_catid_partid.json"), "w") as f:
@@ -300,18 +311,14 @@ def write_synthetic(
             pts[:, 0] += c  # category-dependent offset
             # parts split along z into contiguous slabs
             z_rank = np.argsort(np.argsort(pts[:, 2]))
-            part_local = (z_rank * parts_per_category) // num_points
-            base_oid = c * parts_per_category
-            data[i], label[i, 0], seg[i] = pts, c, base_oid + part_local
+            part_local = (z_rank * parts[c]) // num_points
+            data[i], label[i, 0], seg[i] = pts, c, first_oid[c] + part_local
         return data, label, seg
 
     for split, n in (("train", train_samples), ("val", val_samples)):
-        fname = f"ply_data_{split}0.h5"
-        with h5py.File(os.path.join(h5dir, fname), "w") as f:
-            d, l, s = make_samples(n)
-            f.create_dataset("data", data=d)
-            f.create_dataset("label", data=l)
-            f.create_dataset("pid", data=s)
+        fname = f"ply_data_{split}0.npz"
+        d, l, s = make_samples(n)
+        write_shard(os.path.join(h5dir, fname), data=d, label=l, pid=s)
         with open(os.path.join(h5dir, f"{split}_hdf5_file_list.txt"), "w") as f:
             f.write(fname + "\n")
 
@@ -327,7 +334,7 @@ def write_synthetic(
         os.makedirs(cat_dir_pts, exist_ok=True)
         os.makedirs(cat_dir_seg, exist_ok=True)
         np.savetxt(os.path.join(cat_dir_pts, f"t{i}.pts"), d[0, :n_pts])
-        local = s[0, :n_pts] - c * parts_per_category + 1
+        local = s[0, :n_pts] - first_oid[c] + 1
         with open(os.path.join(cat_dir_seg, f"t{i}.seg"), "w") as f:
             f.write("\n".join(str(int(x)) for x in local) + "\n")
         rows.append(

@@ -7,9 +7,7 @@ three more variants that nothing imports (Util/SmoothConstraint.py:9-128,
 dormant Util/Loss.py alternates got (losses/alternates.py) so a user
 migrating experiments has the full menu.
 
-All run through the shared op library (ops/neighbors.py), so on TPU the
-kNN selection uses the fused Pallas kernel path when reached via the jnp
-entry points here.
+All run through the shared op library (ops/neighbors.py).
 """
 
 from __future__ import annotations

@@ -39,71 +39,28 @@ def init_transform_net(key, in_c: int, K: int = 3) -> Tuple[dict, dict]:
 def apply_transform_net(
     params: dict,
     state: dict,
-    edge_feat: jax.Array,  # [B, N, k, 2*C]; or None with fused_graph set
+    edge_feat: jax.Array,  # [B, N, k, 2*C]
     *,
     K: int = 3,
     training: bool,
     bn_decay,
     bn_eps: float = layers.BN_EPS,
-    fused_graph: jax.Array = None,  # [B, N, C] graph coords for the fused path
-    k: int = 20,
-    fast: bool = False,
     axis_name=None,  # shard_map DP axis: cross-replica BN moments
-    want_graph: bool = False,  # also return the stage's (idx, sqd) kNN graph
-    n_valid=None,  # eval pre-padded inputs (see apply_edge_conv_stage_fused)
 ):
-    """Returns (transform [B, K, K], new BN state); with ``want_graph``
-    (fused path only) appends the tconv stage's gradient-free kNN graph
-    (idx [B, N, k] int32, sqd [B, N, k] f32) — built on the raw
-    ``fused_graph`` coordinates, reusable by the smoothness loss whose
-    graph lives on the same coordinates (losses/weaksup.py) and by the
-    static-graph mode's EdgeConv stages (ModelConfig.static_graph)."""
+    """Returns (transform [B, K, K], new BN state)."""
     new_state = {}
-    graph = None
     kw = dict(training=training, bn_decay=bn_decay, eps=bn_eps,
               axis_name=axis_name)
-    if fused_graph is not None:
-        # tconv1 + tconv2 + k-max as one merged minmax stage (the same
-        # block the EdgeConv stages use): neither the edge tensor nor the
-        # [B, N, k, 128] tconv2 output exists in HBM. Round-2 note: the
-        # first-conv-only fusion here measured SLOWER (the required
-        # scatter was pure overhead since df is dead); the merged stage
-        # amortizes that scatter against the whole conv2+BN+k-max chain.
-        # bf16/TPU configs only.
-        outs = layers.apply_edge_conv_stage_fused(
-            params["tconv1"], state["tconv1"], params["tconv2"],
-            state["tconv2"], fused_graph, fused_graph, k,
-            fast=fast, want_graph=want_graph, n_valid=n_valid, **kw)
-        net, new_state["tconv1"], new_state["tconv2"] = outs[:3]
-        if want_graph:
-            graph = outs[3]
-    else:
-        assert not want_graph, "graph reuse needs the fused stage path"
-        net, new_state["tconv1"] = layers.apply_conv(
-            params["tconv1"], state["tconv1"], edge_feat, **kw)
-        net, new_state["tconv2"] = layers.apply_conv(
-            params["tconv2"], state["tconv2"], net, **kw)
-        net = jnp.max(net, axis=2)  # max over k -> [B, N, 128]
-    if fused_graph is not None:
-        # tconv3 + BN + relu + max over N as the fused nmax block. Besides
-        # keeping the [B, N, 1024] tensor out of HBM, this is a CORRECTNESS
-        # requirement on this backend: the straight bf16
-        # conv+BN+relu+max(axis=1) composition here compiles to a backward
-        # pass with identically-zero gradients for everything upstream of
-        # the N-max (measured on-device; the earlier minimal-repro matrix
-        # in docs/kernels.md found the 3-D axis=1 pattern safe in
-        # isolation, but inside the transform net it is not).
-        net, new_state["tconv3"] = layers.apply_conv_bn_relu_nmax(
-            params["tconv3"], state["tconv3"], net, n_valid=n_valid, **kw)
-    else:
-        assert n_valid is None, "n_valid needs the fused eval path"
-        net, new_state["tconv3"] = layers.apply_conv(
-            params["tconv3"], state["tconv3"], net, **kw)
-        net = jnp.max(net, axis=1)  # max over N -> [B, 1024]
+    net, new_state["tconv1"] = layers.apply_conv(
+        params["tconv1"], state["tconv1"], edge_feat, **kw)
+    net, new_state["tconv2"] = layers.apply_conv(
+        params["tconv2"], state["tconv2"], net, **kw)
+    net = jnp.max(net, axis=2)  # max over k -> [B, N, 128]
+    net, new_state["tconv3"] = layers.apply_conv(
+        params["tconv3"], state["tconv3"], net, **kw)
+    net = jnp.max(net, axis=1)  # max over N -> [B, 1024]
     net, new_state["tfc1"] = layers.apply_conv(params["tfc1"], state["tfc1"], net, **kw)
     net, new_state["tfc2"] = layers.apply_conv(params["tfc2"], state["tfc2"], net, **kw)
     out = params["transform_out"]
     transform = net.astype(jnp.float32) @ out["w"] + out["b"]
-    if want_graph:
-        return transform.reshape(-1, K, K), new_state, graph
     return transform.reshape(-1, K, K), new_state

@@ -3,9 +3,8 @@ from weaksuppointcloudseg_tpu.ops.neighbors import (
     knn,
     gather_neighbors,
     edge_feature,
-    edge_feature_auto,
     knn_graph,
-    knn_graph_fused,
+    nearest_neighbors,
 )
 from weaksuppointcloudseg_tpu.ops.schedules import (
     learning_rate_schedule,
@@ -17,9 +16,8 @@ __all__ = [
     "knn",
     "gather_neighbors",
     "edge_feature",
-    "edge_feature_auto",
     "knn_graph",
-    "knn_graph_fused",
+    "nearest_neighbors",
     "learning_rate_schedule",
     "bn_decay_schedule",
 ]

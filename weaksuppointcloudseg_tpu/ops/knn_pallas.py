@@ -1,25 +1,31 @@
-"""Fused pairwise-distance + k-nearest-neighbor Pallas TPU kernel.
+"""Fused pairwise-distance + k-nearest-neighbour kernel (Pallas, Triton route).
 
-The reference computes the dense B x N x N distance matrix in HBM and then
-runs a generic sort-based top-k over it (tf_util.py:638-671). Under XLA the
-same pattern costs ~3 ms (distance, 256 MB HBM write) + ~29 ms (top-k) for
-B=16, N=2048 on one v5e core. This kernel fuses both:
+The reference builds the dense B x N x N distance matrix in device memory
+and runs a generic top-k over it (tf_util.py:638-671); under XLA a dot does
+not fuse into a top-k, so every graph writes and re-reads [B, N, N] f32
+(1.07 GB at B=64, N=2048). This kernel never materialises it.
 
-- the distance *tile* [ROW_TILE, N] lives only in VMEM (registers/vector
-  memory), never in HBM — the N x N matrix is never materialized;
-- the distance block is one MXU matmul (-2 X_tile X^T fused with the squared
-  norms);
-- selection is k rounds of min + lowest-index tie-break over the VMEM tile
-  (VPU), exactly matching ``jax.lax.top_k(-d, k)`` semantics (smallest
-  distance first, ties -> lowest index — the reference's tf.nn.top_k
-  behavior);
-- channels are zero-padded to the 128-lane width (zero padding cannot change
-  a squared distance), rows to the row tile, and padded columns are pushed to
-  +inf so they are never selected.
+One program owns one (cloud, tile of ``tm`` query rows). It streams the
+cloud's points in tiles of ``tn`` candidates and keeps, per query row, the
+running k best (squared distance, index) pairs in registers, so no state
+crosses program boundaries:
 
-The kernel returns int32 indices only — kNN selection is not differentiated
-anywhere in the pipeline (gradients flow through the subsequent gather,
-which stays in XLA; see models/dgcnn.py).
+- distances are ``|q|^2 - 2 q.c + |c|^2`` with the dot in IEEE f32
+  (``allow_tf32=False``) -- the reference formula (ops/neighbors.py::
+  pairwise_sqdist), so the indices agree with ``knn_graph`` except where
+  two distances tie within f32 rounding;
+- a candidate tile costs only as many selection rounds as the largest
+  number of its entries in one row that beat that row's current k-th best
+  (at most k): after the first tiles the running bound is tight and most
+  tiles take few rounds;
+- each round moves a row's best remaining candidate into the slot of its
+  current worst entry; ties resolve towards the lower index, exactly like
+  ``lax.top_k`` on ``-d``. The final k are emitted nearest first.
+
+Padded candidates carry ``|c|^2 = +inf`` and so are never selected; padded
+query rows produce rows the wrapper slices off. Channels are zero-padded to
+a power of two of at least 16 (the dot's smallest operand width), which
+cannot change a squared distance.
 """
 
 from __future__ import annotations
@@ -29,187 +35,133 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-LANE = 128
+# query rows per program, candidates per streamed tile, warps per program
+ROW_TILE = 32
+COL_TILE = 128
+NUM_WARPS = 4
+
+_BIG_INDEX = 2**30
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(0, (x - 1).bit_length())
 
 
 def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
+    return -(-x // m) * m
 
 
-# Knockout-free fast selection — see ops/edgeconv_pallas.py for the
-# rationale (packed values are strictly unique, so a masked min over the
-# UNCHANGED tile replaces the knockout write AND, with no gather mask
-# needed here, the winner compare: 1 memory pass/round).
-KNOCKOUT_FREE_FAST = False
+def _knn_kernel(x_ref, sq_ref, idx_ref, val_ref, *, k: int, tm: int, tn: int,
+                n_tiles: int):
+    kp = idx_ref.shape[-1]
+    row0 = pl.program_id(1) * tm
+    q = x_ref[pl.ds(row0, tm), :]                   # [tm, cp] f32
+    sq_q = sq_ref[pl.ds(row0, tm)]                  # [tm]
+    slot = jax.lax.broadcasted_iota(jnp.int32, (tm, kp), 1)
+    col = jax.lax.broadcasted_iota(jnp.int32, (tm, tn), 1)
+    # slots >= k hold -inf so they are never the row's worst entry
+    vals = jnp.where(slot < k, jnp.inf, -jnp.inf).astype(jnp.float32)
+    idxs = jnp.full((tm, kp), _BIG_INDEX, jnp.int32)
+
+    def tile(j, carry):
+        vals, idxs = carry
+        c = x_ref[pl.ds(j * tn, tn), :]             # [tn, cp]
+        sq_c = sq_ref[pl.ds(j * tn, tn)]            # [tn]
+        inner = pl.dot(q, c, trans_b=True, allow_tf32=False)
+        d = sq_q[:, None] - 2.0 * inner + sq_c[None, :]
+        worst = jnp.max(vals, axis=1)
+        better = (d < worst[:, None]).astype(jnp.int32)
+        rounds = jnp.minimum(jnp.max(jnp.sum(better, axis=1)), k)
+
+        def select(_, st):
+            d, vals, idxs, worst = st
+            m = jnp.min(d, axis=1)
+            p = jnp.argmin(d, axis=1).astype(jnp.int32)
+            # evict the worst entry; among equal values the higher index
+            # loses, as in lax.top_k
+            evict = jnp.argmax(
+                jnp.where(vals == worst[:, None], idxs, -1), axis=1
+            ).astype(jnp.int32)
+            put = (slot == evict[:, None]) & (m < worst)[:, None]
+            vals = jnp.where(put, m[:, None], vals)
+            idxs = jnp.where(put, (j * tn + p)[:, None], idxs)
+            d = jnp.where(col == p[:, None], jnp.inf, d)
+            return d, vals, idxs, jnp.max(vals, axis=1)
+
+        _, vals, idxs, _ = jax.lax.fori_loop(
+            0, rounds, select, (d, vals, idxs, worst))
+        return vals, idxs
+
+    vals, idxs = jax.lax.fori_loop(0, n_tiles, tile, (vals, idxs))
+
+    # emit nearest first; among equal distances the lower index first
+    vals = jnp.where(slot < k, vals, jnp.inf)
+    out_v = jnp.full((tm, kp), jnp.inf, jnp.float32)
+    out_i = jnp.zeros((tm, kp), jnp.int32)
+    for t in range(k):
+        m = jnp.min(vals, axis=1)
+        sel = jnp.min(jnp.where(vals == m[:, None], idxs, _BIG_INDEX), axis=1)
+        out_v = jnp.where(slot == t, m[:, None], out_v)
+        out_i = jnp.where(slot == t, sel[:, None], out_i)
+        vals = jnp.where(idxs == sel[:, None], jnp.inf, vals)
+    idx_ref[...] = out_i
+    val_ref[...] = out_v
 
 
-def _knn_kernel_fast(rows_ref, all_ref, out_ref, val_ref, *, k: int,
-                     n_valid: int, n_pad: int, idx_bits: int):
-    """Packed-min selection: distance bits and column index share one int32.
-
-    For d >= 0 the IEEE-754 bit pattern is monotone under integer compare,
-    so ``(bits(d) & ~mask) | col`` gives min-distance-then-lowest-index in a
-    SINGLE min per round (2 VPU passes/round vs 4 for the exact kernel).
-    The low ``idx_bits`` mantissa bits of d are sacrificed — neighbors whose
-    distances agree to ~2^-(23-idx_bits) relative may swap order vs
-    ``lax.top_k``. Selected via ``knn_pallas(..., fast=True)``; part of the
-    recommended fast config after the end-to-end accuracy A/B
-    (docs/kernels.md), while the parity default stays exact.
-    """
-    rows = rows_ref[0]
-    allp = all_ref[0]
-    d = -2.0 * jax.lax.dot_general(
-        rows, allp,
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-    d = d + jnp.sum(jnp.square(rows.astype(jnp.float32)), axis=1, keepdims=True)
-    d = d + jnp.sum(jnp.square(allp.astype(jnp.float32)), axis=1)[None, :]
-    d = jnp.maximum(d, 0.0)
-
-    tm = d.shape[0]
-    col_ids = jax.lax.broadcasted_iota(jnp.int32, (tm, n_pad), 1)
-    mask = (1 << idx_bits) - 1
-    bits = jax.lax.bitcast_convert_type(d, jnp.int32)
-    packed = (bits & ~mask) | col_ids
-    if n_valid < n_pad:
-        big = jnp.int32(0x7F000000)
-        packed = jnp.where(col_ids < n_valid, packed, big | col_ids)
-
-    idx_cols, val_cols = [], []
-    if KNOCKOUT_FREE_FAST:
-        # packed values are strictly unique, so the next winner is the min
-        # of values strictly greater than the last — masked min over the
-        # UNCHANGED packed tile: 1 memory pass/round, no knockout write and
-        # (with no gather here) no winner-mask compare at all
-        m = None
-        for _ in range(k):
-            src = packed if m is None else jnp.where(
-                packed > m, packed, jnp.int32(0x7F7FFFFF))
-            m = jnp.min(src, axis=1, keepdims=True)
-            idx_cols.append(m & mask)
-            val_cols.append(
-                jax.lax.bitcast_convert_type(m & ~mask, jnp.float32))
-    else:
-        knocked = packed
-        for _ in range(k):
-            m = jnp.min(knocked, axis=1, keepdims=True)
-            idx = m & mask
-            idx_cols.append(idx)
-            val_cols.append(
-                jax.lax.bitcast_convert_type(m & ~mask, jnp.float32))
-            knocked = jnp.where(col_ids == idx, jnp.int32(0x7F7FFFFF),
-                                knocked)
-    out_ref[0] = jnp.concatenate(idx_cols, axis=1)
-    val_ref[0] = jnp.concatenate(val_cols, axis=1)
-
-
-def _knn_kernel(rows_ref, all_ref, out_ref, val_ref, *, k: int, n_valid: int,
-                n_pad: int):
-    """One (batch, row-tile) grid step.
-
-    rows_ref: [1, TM, Cp] query rows (VMEM)
-    all_ref:  [1, Np, Cp] all points of this batch element (VMEM)
-    out_ref:  [1, TM, k] int32 neighbor indices, nearest first
-    val_ref:  [1, TM, k] f32 squared distances of the selected neighbors
-    """
-    rows = rows_ref[0]
-    allp = all_ref[0]
-    # -2 X_q X^T on the MXU, fp32 accumulation.
-    d = -2.0 * jax.lax.dot_general(
-        rows, allp,
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-    d = d + jnp.sum(jnp.square(rows.astype(jnp.float32)), axis=1, keepdims=True)
-    d = d + jnp.sum(jnp.square(allp.astype(jnp.float32)), axis=1)[None, :]
-
-    tm = d.shape[0]
-    col_ids = jax.lax.broadcasted_iota(jnp.int32, (tm, n_pad), 1)
-    if n_valid < n_pad:  # mask zero-padded phantom points
-        d = jnp.where(col_ids < n_valid, d, jnp.inf)
-
-    # k rounds of (min, lowest-index tie-break, knock out the winner).
-    cols, vals = [], []
-    for _ in range(k):
-        m = jnp.min(d, axis=1, keepdims=True)
-        idx = jnp.min(jnp.where(d == m, col_ids, n_pad), axis=1, keepdims=True)
-        cols.append(idx)
-        vals.append(m)
-        d = jnp.where(col_ids == idx, jnp.inf, d)
-    out_ref[0] = jnp.concatenate(cols, axis=1)
-    val_ref[0] = jnp.concatenate(vals, axis=1)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("k", "row_tile", "interpret", "with_values", "fast"),
-)
-def knn_pallas(
-    x: jax.Array,
-    k: int,
-    *,
-    row_tile: int = 256,
-    interpret: bool = False,
-    with_values: bool = False,
-    fast: bool = False,
-):
-    """kNN via the fused Pallas kernel.
+@functools.partial(jax.jit,
+                   static_argnames=("k", "with_values", "interpret"))
+def knn_pallas(x: jax.Array, k: int, *, with_values: bool = False,
+               interpret: bool = False):
+    """k nearest neighbours of every point of every cloud.
 
     Args:
-      x: [B, N, C] points/features (any float dtype; distance accumulates
-        fp32).
-      k: neighbor count (self included, like tf_util.knn).
-      row_tile: query rows per grid step (VMEM tile height).
-      interpret: run in the Pallas interpreter (CPU tests).
-      with_values: also return the selected squared distances (used by the
-        smoothness loss, SmoothConstraint.py:154-158; non-differentiable —
-        stop_gradient the input).
+      x: [B, N, C] points or features, any float dtype (distances are
+        computed in f32).
+      k: neighbour count, self included (like tf_util.knn); ``k <= N``.
+      with_values: also return the selected squared distances.
+      interpret: run the kernel in the Pallas interpreter (CPU tests).
 
     Returns:
-      int32 idx [B, N, k] nearest first — identical ordering to
-      ``knn(pairwise_sqdist(x), k)`` up to fp associativity; with
-      ``with_values`` a (idx, sqdist [B, N, k] f32) tuple.
+      int32 [B, N, k] indices, nearest first; with ``with_values`` the
+      pair (indices, f32 [B, N, k] squared distances).
     """
     b, n, c = x.shape
-    tm = min(row_tile, _round_up(n, 8))
-    # cap the [tm, N_pad] distance tile at ~4 MB of VMEM for very large N
-    tm = max(8, min(tm, _round_up((4 << 20) // (4 * max(n, 1)), 8)))
-    n_pad = _round_up(n, tm)
-    c_pad = _round_up(c, LANE)
-    if (n_pad, c_pad) != (n, c):
-        x = jnp.pad(x, ((0, 0), (0, n_pad - n), (0, c_pad - c)))
-
-    if fast:
-        idx_bits = max(1, (n_pad - 1).bit_length())
-        kernel = functools.partial(
-            _knn_kernel_fast, k=k, n_valid=n, n_pad=n_pad, idx_bits=idx_bits)
-    else:
-        kernel = functools.partial(_knn_kernel, k=k, n_valid=n, n_pad=n_pad)
-    grid = (b, n_pad // tm)
+    if not 0 < k <= n:
+        raise ValueError(f"need 0 < k <= N, got k={k}, N={n}")
+    tm, tn = ROW_TILE, COL_TILE
+    n_pad = _round_up(n, max(tm, tn))
+    cp = max(16, _next_pow2(c))
+    kp = _next_pow2(k)
+    x = x.astype(jnp.float32)
+    sq = jnp.sum(jnp.square(x), axis=-1)
+    x = jnp.pad(x, ((0, 0), (0, n_pad - n), (0, cp - c)))
+    sq = jnp.pad(sq, ((0, 0), (0, n_pad - n)), constant_values=jnp.inf)
+    kernel = functools.partial(_knn_kernel, k=k, tm=tm, tn=tn,
+                               n_tiles=n_pad // tn)
     idx, vals = pl.pallas_call(
         kernel,
-        grid=grid,
+        grid=(b, n_pad // tm),
         in_specs=[
-            pl.BlockSpec((1, tm, c_pad), lambda bi, i: (bi, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, n_pad, c_pad), lambda bi, i: (bi, 0, 0),
-                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((None, n_pad, cp), lambda bi, i: (bi, 0, 0)),
+            pl.BlockSpec((None, n_pad), lambda bi, i: (bi, 0)),
         ],
-        out_specs=(
-            pl.BlockSpec((1, tm, k), lambda bi, i: (bi, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tm, k), lambda bi, i: (bi, i, 0),
-                         memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((b, n_pad, k), jnp.int32),
-            jax.ShapeDtypeStruct((b, n_pad, k), jnp.float32),
-        ),
+        out_specs=[
+            pl.BlockSpec((None, tm, kp), lambda bi, i: (bi, i, 0)),
+            pl.BlockSpec((None, tm, kp), lambda bi, i: (bi, i, 0)),
+        ],
+        out_shape=[
+            jax.ShapeDtypeStruct((b, n_pad, kp), jnp.int32),
+            jax.ShapeDtypeStruct((b, n_pad, kp), jnp.float32),
+        ],
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=2),
+        backend="triton",
         interpret=interpret,
-    )(x, x)
+        name="knn_topk",
+    )(x, sq)
+    idx = idx[:, :n, :k]
     if with_values:
-        return idx[:, :n], vals[:, :n]
-    return idx[:, :n]
+        return idx, vals[:, :n, :k]
+    return idx

@@ -1,7 +1,7 @@
-"""Device mesh + sharding helpers: data parallelism over ICI (and DCN).
+"""Device mesh + sharding helpers: data parallelism across devices and hosts.
 
 The reference is strictly single-GPU (SURVEY.md §2.3: no NCCL/MPI/tf.distribute
-anywhere; CUDA_VISIBLE_DEVICES selection at train_ShapeNet.py:41-42). The TPU
+anywhere; CUDA_VISIBLE_DEVICES selection at train_ShapeNet.py:41-42). This
 framework supplies data parallelism as a first-class component:
 
 - a 1-D ``jax.sharding.Mesh`` over devices with axis ``"data"`` — local
@@ -14,23 +14,19 @@ framework supplies data parallelism as a first-class component:
   process_local=True)``) — the per-host input pipeline of SURVEY.md §5;
 - gradient all-reduce and cross-replica batch-norm moments fall out of XLA's
   partitioner: the loss / BN reductions span the sharded batch axis, so the
-  compiler inserts the ``psum``s over ICI itself (the scaling-book recipe —
-  annotate shardings, let XLA place collectives). Intra-host/slice traffic
-  rides ICI; only the cross-host hop (if any) touches DCN.
+  compiler inserts the ``psum``s itself (annotate shardings, let XLA place
+  collectives). Within a host they run over the device interconnect
+  (NVLink between GPUs); only a cross-host hop touches the network.
 
 Siamese pairs are interleaved along the batch axis; batch shards therefore
 keep each (sample, augmented-sample) pair on one device as long as the
 per-device batch is even — asserted in ``shard_batch``.
 
-Fused-kernel path: the bf16 fused Pallas blocks compute BN batch moments
-*inside* kernels, which the SPMD partitioner cannot split over the sharded
-batch axis — so fused x multi-device runs through an explicit ``shard_map``
-step instead (train/steps.py ``make_train_step(..., mesh=...)``): the
-blocks psum their in-kernel moment sums over the mesh axis
-(models/layers.py::_psum_moments) and per-shard gradients reduce across
-shards. Validated leaf-for-leaf against the single-device step by
-tests/test_shardmap_dp.py (interpret-mode kernels on the 8-virtual-device
-CPU mesh).
+An explicit ``shard_map`` step (train/steps.py ``make_train_step(...,
+mesh=...)``) is the alternative: every BN pmeans its moments over the mesh
+axis and per-shard gradients reduce across shards. Validated leaf-for-leaf
+against the single-device step by tests/test_shardmap_dp.py on the
+8-virtual-device CPU mesh.
 """
 
 from __future__ import annotations
@@ -49,12 +45,11 @@ def init_distributed(coordinator_address: Optional[str] = None,
                      **kwargs) -> None:
     """Bring up the multi-host runtime (``jax.distributed.initialize``).
 
-    Call ONCE per process, before any other jax use. On TPU pods the three
-    arguments are auto-detected from the environment and may be omitted; on
-    CPU/GPU clusters pass them explicitly (coordinator = "host:port" of
-    process 0). After this, ``jax.devices()`` returns the global device
+    Call ONCE per process, before any other jax use. Pass the three
+    arguments explicitly (coordinator = "host:port" of process 0) unless a
+    cluster manager JAX knows sets them in the environment. After this, ``jax.devices()`` returns the global device
     list, ``make_mesh()`` builds a global mesh, and cross-host collectives
-    run over DCN (Gloo on CPU). No-op if already initialized.
+    run over the network (Gloo on CPU). No-op if already initialized.
     """
     try:
         jax.distributed.initialize(

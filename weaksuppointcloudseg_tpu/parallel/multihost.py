@@ -1,11 +1,11 @@
 """Multi-host (multi-process) data-parallel execution.
 
 The reference has no distributed execution of any kind (SURVEY.md §2.3);
-this module supplies the multi-host layer of the TPU rebuild: bring up the
+this module supplies the multi-host layer of the rebuild: bring up the
 distributed runtime (``mesh.init_distributed``), build the global mesh, feed
 each host only its local batch shard (``mesh.shard_batch(...,
 process_local=True)``), and let XLA's partitioner place the cross-host
-collectives (gradient psum + cross-replica BN) over ICI/DCN.
+collectives (gradient psum + cross-replica BN).
 
 ``run_worker`` is a self-contained one-train-step worker used two ways:
 
@@ -17,9 +17,9 @@ collectives (gradient psum + cross-replica BN) over ICI/DCN.
   <port> <devs_per_proc> <out_file>`` runs one worker by hand (also what
   ``__graft_entry__.dryrun_multichip`` uses for its multi-process mode).
 
-On a real TPU pod slice the same sequence applies with
-``init_distributed()`` (no arguments — auto-detected), the real per-host
-loaders, and the real config.
+On a real multi-host GPU cluster the same sequence applies with
+``init_distributed(coordinator, num_processes, process_id)``, the real
+per-host loaders, and the real config.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ def _tiny_config(num_points: int = 64, unique_bs: int = 8):
         cfg,
         model=dataclasses.replace(
             cfg.model, num_points=num_points, num_classes=6,
-            num_categories=4, use_fused_knn=False),
+            num_categories=4),
         train=dataclasses.replace(cfg.train, batch_size=unique_bs,
                                   style="Full"),
     )

@@ -6,7 +6,7 @@ Rebuild of Util/ProbLabelPropagation.py:3-63 (``LabelPropagation_TF``):
     Y   = beta * (alpha L + beta diag(w) + 1e-5 I)^-1 diag(w) G      (:21-23)
     Y_prob = Y / sum_k Y                                              (:23)
 
-TPU-native differences:
+Differences from the reference:
 - The explicit ``tf.linalg.inv`` + matmul is replaced by a batched linear
   solve (one LU per sample instead of a full inverse — ~3x fewer FLOPs and
   better conditioned). A matrix-free conjugate-gradient mode avoids the
@@ -117,14 +117,9 @@ def label_propagation_factored(
 
         A v = [alpha (d+eps) s^2 + beta w_conf + ridge] v - alpha s (W (s v))
 
-    with s = d^-1/2. Building L = S(D-W)S costs two extra full [B,N,N]
-    passes (write L, then CG reads L instead of W) for zero information —
-    measured 30.7 -> 17.9 ms at the ShapeNet test shape (B=32, N=3000) on
-    v5e. XLA hoists the loop-invariant bf16 cast of W out of the CG loop,
-    so each iteration streams the 576 MB bf16 W at ~711 GB/s (87% of
-    nominal HBM peak): the matvec is at its bandwidth floor, and explicit
-    bf16/hi-lo storage buys nothing further (measured wash / 1.8x
-    regression, docs/kernels.md round 5).
+    with s = d^-1/2. Building L = S(D-W)S would cost two extra full
+    [B,N,N] passes (write L, then CG reads L instead of W) for zero
+    information.
     """
     from weaksuppointcloudseg_tpu.propagate.laplacian import (
         product_kernel_weights,
@@ -183,26 +178,16 @@ def label_propagation_matfree(
     Gram/exp for O(N^2) -> O(T*N) memory; the mode for clouds whose dense
     Laplacian would not fit HBM.
 
-    TPU shaping (round 5 — see docs/kernels.md "room-LP"):
+    Shaping (docs/kernels.md "room-LP"):
     - the xyz/rgb Grams FOLD into one 6-channel Gram on
       bandwidth-pre-scaled features (exp(-(bx*dx + br*dr)) =
       exp(-sqd([sqrt(bx) x, sqrt(br) rgb])));
-    - the Gram runs at Precision.HIGHEST: the default bf16-input matmul
-      puts ~1e-2-scale absolute error on d^2, which the exp(-1e3 d^2)
+    - the Gram runs at Precision.HIGHEST: a reduced-precision (bf16 or
+      TF32) Gram puts ~1e-3-relative error on d^2, which the exp(-1e3 d^2)
       kernel amplifies to e^(+-10) garbage on meter-scale room coords;
-    - the tile is applied TRANSPOSED, accumulating out^T [B,K,N] over row
-      tiles via u_tile^T [K,T] @ W_rows [T,N] (W is symmetric). The
-      straightforward W_rows @ u orientation puts K=num_classes+1 (~14)
-      on the MXU lane axis — 89% padding waste at 128 lanes; transposed,
-      K sits on the sublane axis (pads 14->16) and the lane axis is N.
-    - on TPU the ENTIRE CG runs in that transposed [B, K, N] space
-      (state, vector ops, kernel IO — affinity_matvec_pallas_t): with
-      [B, N, K] state every iteration's freshly-computed kernel operand
-      u = s*p costs the kernel ~1.7x (measured; see the fused branch
-      comment), and the per-iteration swapaxes pair disappears.
+    - the tile is applied transposed, accumulating out^T [B,K,N] over row
+      tiles via u_tile^T [K,T] @ W_rows [T,N] (W is symmetric).
     """
-    from weaksuppointcloudseg_tpu.ops import affinity_pallas
-
     b, n, _ = xyz.shape
     t = _largest_divisor_at_most(n, row_tile)
     n_tiles = n // t
@@ -219,73 +204,6 @@ def label_propagation_matfree(
          rgb * jnp.sqrt(jnp.float32(rgb_bandwidth))], axis=-1)  # [B,N,6]
     feat = feat - jnp.mean(feat, axis=1, keepdims=True)
 
-    use_fused = affinity_pallas.supported()
-    order = inv_order = None
-    if use_fused:
-        # morton-sort so spatially-near points share kernel tiles: the
-        # fused kernel skips (row-tile, col-tile) blocks whose bounding
-        # boxes are farther than its cutoff — exact bound, so the sort
-        # affects only skip EFFICIENCY, never the result. The whole CG
-        # runs in sorted space; y is unsorted at the end. Sorting the
-        # pre-built feat (not xyz/rgb separately) saves one full-cloud
-        # gather pass; centering commutes with the permutation.
-        order = affinity_pallas.morton_order(xyz)  # [B, N]
-        inv_order = jnp.argsort(order, axis=1)
-        take = lambda a: jnp.take_along_axis(a, order[..., None], axis=1)
-        feat, g = take(feat), take(g)
-
-    if use_fused:
-        # The whole CG runs in the kernel's native TRANSPOSED [B, K, N]
-        # layout (ops/affinity_pallas.py::affinity_matvec_pallas_t).
-        # Measured on the 131k bench room (docs/kernels.md round 5): the
-        # straight-layout kernel costs 30 ms/apply when u is the raw
-        # loop carry but 50 ms when u is computed per iteration (CG's
-        # u = s*p) — the [N, K~13] layout puts K on the 128-lane axis of
-        # every DMA/VREG op. Transposed state also makes all CG vector
-        # ops N-on-lanes and drops the per-iteration swapaxes pair.
-        # 512x512 tiles: tighter bboxes halve the surviving Gram area vs
-        # 1024x1024 (13.9% vs 21.9% on the bench room; 256x1024 tied).
-        tr = tc = 512
-        n_pad = -(-n // tr) * tr
-        pad = n_pad - n
-        feat_t = jnp.swapaxes(feat, 1, 2)  # [B, F, N]
-        g_t = jnp.swapaxes(g, 1, 2)        # [B, K, N]
-        if pad:
-            # far-away pad points: affinity exactly 0 both ways (module
-            # docstring contract) — added AFTER centering, so they do
-            # not disturb the cancellation-error control
-            feat_t = jnp.pad(feat_t, ((0, 0), (0, 0), (0, pad)),
-                             constant_values=1e6)
-            g_t = jnp.pad(g_t, ((0, 0), (0, 0), (0, pad)))
-        mv = partial(affinity_pallas.affinity_matvec_pallas_t,
-                     row_tile=tr, col_tile=tc)
-        d = mv(feat_t, jnp.ones((b, 1, n_pad), jnp.float32))[:, 0]
-        s = jax.lax.rsqrt(jnp.maximum(d, 1e-30))
-        w_conf = entropy_confidence(g)  # [B, N] (unpadded)
-        if pad:
-            w_conf = jnp.pad(w_conf, ((0, 0), (0, pad)))
-            # pad lanes: s=0 (no mass in or out), diag=1, rhs=0 — the CG
-            # solution there is exactly 0 and never couples to real lanes
-            lane = jnp.arange(n_pad) < n
-            s = jnp.where(lane[None, :], s, 0.0)
-        diag = alpha * (d + degree_eps) * s * s + beta * w_conf + ridge
-        if pad:
-            diag = jnp.where(lane[None, :], diag, 1.0)
-
-        def matvec_t(v):  # [B, K, n_pad]
-            return diag[:, None, :] * v - alpha * s[:, None, :] * mv(
-                feat_t, s[:, None, :] * v)
-
-        rhs_t = w_conf[:, None, :] * g_t
-        y_t, _ = jax.scipy.sparse.linalg.cg(
-            matvec_t, rhs_t, maxiter=cg_iters, tol=cg_tol,
-            M=lambda v: v / diag[:, None, :])
-        y_t = beta * y_t
-        denom = jnp.sum(y_t, axis=1, keepdims=True)
-        y_t = y_t / jnp.where(jnp.abs(denom) < 1e-30, 1.0, denom)
-        y = jnp.swapaxes(y_t[:, :, :n], 1, 2)  # [B, N, K]
-        return jnp.take_along_axis(y, inv_order[..., None], axis=1)
-
     sq = jnp.sum(feat * feat, axis=-1)  # [B, N]
 
     def w_rows(i):
@@ -299,8 +217,8 @@ def label_propagation_matfree(
             rsq[..., :, None] - 2.0 * inner + sq[..., None, :], 0.0)
         return jnp.exp(-d)
 
-    def apply_w(u):  # [B, N, K] -> W @ u (XLA fallback: one [B, T, N]
-        # affinity tile materialized per row tile — CPU/non-TPU path)
+    def apply_w(u):  # [B, N, K] -> W @ u, one [B, T, N] affinity tile
+        # materialized per row tile
         k = u.shape[-1]
 
         def body(i, acc):
@@ -332,10 +250,7 @@ def label_propagation_matfree(
         M=lambda v: v / diag[..., None])
     y = beta * y
     denom = jnp.sum(y, axis=-1, keepdims=True)
-    y = y / jnp.where(jnp.abs(denom) < 1e-30, 1.0, denom)
-    if inv_order is not None:  # undo the morton sort
-        y = jnp.take_along_axis(y, inv_order[..., None], axis=1)
-    return y
+    return y / jnp.where(jnp.abs(denom) < 1e-30, 1.0, denom)
 
 
 def propagate_batch(

@@ -1,6 +1,6 @@
 """Graph-Laplacian builders for label propagation.
 
-TPU-native rebuild of the reference's placeholder-graph calculators
+Rebuild of the reference's placeholder-graph calculators
 (Util/Tool.py:400-467, classes ``LaplacianMat_XYZRGB_DirectComp`` /
 ``LaplacianMatSym_XYZRGB_DirectComp``):
 
@@ -13,8 +13,8 @@ ShapeNet calls the symmetric variant with (xyz, xyz) — no color
 (ShapeNet/ShapeNet_DGCNN_trainer.py:551); S3DIS with (xyz, rgb)
 (S3DIS/S3DIS_DGCNN_trainer.py:543).
 
-TPU notes: the two Gram matrices are batched MXU matmuls; the exp / product /
-row-sum fuse into their epilogue under XLA. Rather than materializing the
+The two Gram matrices are batched matmuls at full f32 precision; the exp /
+product / row-sum fuse into their epilogue under XLA. Rather than materializing the
 diagonal degree matrices and doing two more N x N matmuls like the reference,
 the symmetric normalization is applied as a rank-1 row/column scaling
 (outer product of d^-1/2), which is bandwidth-, not compute-, bound.

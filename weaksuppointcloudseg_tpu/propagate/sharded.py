@@ -1,7 +1,7 @@
 """Point-axis-sharded label propagation (the context-parallel analog).
 
-For very large clouds the dense N x N Laplacian stops fitting one core's
-HBM comfort zone (SURVEY.md §5 "long-context" row: a 4096^2 f32 matrix is
+For very large clouds the dense N x N Laplacian stops fitting one device's
+memory comfortably (SURVEY.md §5 "long-context" row: a 4096^2 f32 matrix is
 64 MB per sample — and the reference's closed-form solve is O(N^3)). This
 module shards the *point axis* across the device mesh with ``shard_map``:
 
@@ -12,7 +12,7 @@ module shards the *point axis* across the device mesh with ``shard_map``:
   all-gather; the unnormalized variant (:402-433) needs none;
 - the LP system is solved matrix-free with conjugate gradient where the
   matvec is row-local (one [B, N, K] all-gather of the iterate) and the CG
-  scalars reduce with ``psum`` — all collectives ride ICI.
+  scalars reduce with ``psum``.
 
 This trades the O(N^3) factorization for O(iters * N^2 / D) work and cuts
 per-device memory from N^2 to N^2 / D. Reached from the test CLIs via
@@ -37,7 +37,7 @@ def _affinity_rows(x_rows, x_all, rgb_rows, rgb_all, *, xyz_bandwidth,
     """W row block [B, n_local, N] (product kernel, Util/Tool.py:443-459)."""
 
     def sqd(a, b):
-        # HIGHEST: default bf16-input matmuls corrupt exp(-1e3 d^2)
+        # HIGHEST: reduced-precision (bf16 / TF32) matmuls corrupt exp(-1e3 d^2)
         # affinities (see ops/neighbors.py::pairwise_sqdist)
         inner = jnp.einsum("blc,bnc->bln", a, b,
                            preferred_element_type=jnp.float32,

@@ -13,24 +13,30 @@ reference's (driven by step * batch_size, floor 1e-5).
 
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+import dataclasses
+from typing import Any
 
 import jax
 import jax.numpy as jnp
 import optax
-from flax.struct import dataclass as flax_dataclass, field
 
 from weaksuppointcloudseg_tpu.configs import ExperimentConfig
 from weaksuppointcloudseg_tpu.models.dgcnn import init_dgcnn_seg
 
 
-@flax_dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class TrainState:
     params: Any
     bn_state: Any
     opt_state: Any
     step: jax.Array  # int32 scalar
-    tx: optax.GradientTransformation = field(pytree_node=False)
+    # static (part of the treedef, not a leaf): jit retraces if it changes
+    tx: optax.GradientTransformation = dataclasses.field(
+        metadata=dict(static=True))
+
+    def replace(self, **updates) -> "TrainState":
+        return dataclasses.replace(self, **updates)
 
     def apply_gradients(self, grads, learning_rate) -> "TrainState":
         # write the scheduled LR into the injected hyperparams

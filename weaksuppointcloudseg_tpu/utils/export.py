@@ -8,10 +8,9 @@ analog for (its deployment story is "re-run test_*.py against a TF1
 checkpoint"); a production serving stack wants a frozen, compiler-portable
 function.
 
-The exported graph is traced with ``use_fused_knn=False`` so it contains
-only portable XLA ops (Pallas/Mosaic kernels are backend-specific and
-would pin the artifact to one TPU generation); peak-throughput inference
-stays in the CLIs, which run the fused kernels.
+Each platform's lowering is the one the CLIs run: for ``cuda`` the
+artifact embeds the fused kNN Triton kernel (ops/neighbors.py), for every
+other platform the plain XLA kNN.
 """
 
 from __future__ import annotations
@@ -25,6 +24,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+TRITON_CUSTOM_CALL = "__gpu$xla.gpu.triton"
+
 
 def export_inference(
     cfg,                      # ExperimentConfig
@@ -34,7 +35,7 @@ def export_inference(
     *,
     batch_size: int,
     num_points: Optional[int] = None,
-    platforms: Sequence[str] = ("cpu", "tpu"),
+    platforms: Sequence[str] = ("cpu", "cuda"),
 ) -> str:
     """Serialize the eval forward to ``path`` (+ a .json shape sidecar).
 
@@ -47,10 +48,7 @@ def export_inference(
     from weaksuppointcloudseg_tpu.models.dgcnn import apply_dgcnn_seg
 
     model = dataclasses.replace(
-        cfg.model,
-        use_fused_knn=False,  # portable XLA ops only (see module docstring)
-        **({"num_points": num_points} if num_points else {}),
-    )
+        cfg.model, **({"num_points": num_points} if num_points else {}))
     n = model.num_points
     has_cat = model.num_categories > 0
 
@@ -87,7 +85,14 @@ def export_inference(
                                  jnp.float32),
         )
 
-    exp = jax_export.export(jax.jit(serve), platforms=list(platforms))(*args)
+    # the Triton custom call is not on jax.export's list of targets with a
+    # stability guarantee: the artifact must be loaded by the same JAX
+    # version that wrote it (as the sidecar's loader already assumes)
+    exp = jax_export.export(
+        jax.jit(serve), platforms=list(platforms),
+        disabled_checks=[jax_export.DisabledSafetyCheck.custom_call(
+            TRITON_CUSTOM_CALL)],
+    )(*args)
     with open(path, "wb") as f:
         f.write(exp.serialize())
     sidecar = {

@@ -1,6 +1,6 @@
-"""Seeded synthetic-data convergence runs, shared by the on-device
-regression tests (tests/test_tpu_kernels.py) and the multi-seed A/B
-harness (scripts/convergence_ab.py).
+"""Seeded synthetic-data convergence runs, shared by the CPU smoke test
+(tests/test_train.py) and the multi-seed A/B harness
+(scripts/convergence_ab.py).
 
 The reference has no automated accuracy tests (SURVEY.md §4); these
 learnable synthetic sets are this framework's stand-in until the real
@@ -49,7 +49,7 @@ def learnable_shapenet(rng, n_samples, n_points, n_cat=4, parts_per=3,
     return np.stack(xs), np.stack(segs), np.asarray(cats, np.int32), centers
 
 
-def shapenet_train_and_eval_miou(compute_dtype, knn_fast, *, seed=0,
+def shapenet_train_and_eval_miou(compute_dtype, *, seed=0,
                                  epochs=24, static_graph=False,
                                  data_seed=None, eval_tail=1,
                                  n_points=1024, bs=8):
@@ -64,8 +64,8 @@ def shapenet_train_and_eval_miou(compute_dtype, knn_fast, *, seed=0,
     "reconditioned convergence recipe" — the diagnosis runs that located
     the variance on the data axis). Config A/Bs (scripts/convergence_ab.py)
     now pin ``data_seed=0`` (a verified-learnable draw) and vary only
-    ``seed``, so the paired fast-vs-parity differences measure kernel
-    effects rather than draw difficulty.
+    ``seed``, so the paired config differences measure the config
+    rather than draw difficulty.
 
     ``eval_tail``: average the val mIoU over the final ``eval_tail``
     epochs instead of evaluating only the last checkpoint. With the draw
@@ -93,7 +93,7 @@ def shapenet_train_and_eval_miou(compute_dtype, knn_fast, *, seed=0,
         model=dataclasses.replace(
             cfg.model, num_points=n_points, num_classes=n_cls,
             num_categories=n_cat, compute_dtype=compute_dtype,
-            knn_fast=knn_fast, static_graph=static_graph),
+            static_graph=static_graph),
         train=dataclasses.replace(cfg.train, batch_size=bs, style="Full"),
     )
     rng = np.random.default_rng(seed)
@@ -187,7 +187,7 @@ def shapenet_train_and_eval_miou(compute_dtype, knn_fast, *, seed=0,
     return eval_miou(state)
 
 
-def s3dis_train_and_eval_miou(compute_dtype, knn_fast, *, seed=0,
+def s3dis_train_and_eval_miou(compute_dtype, *, seed=0,
                               epochs=24, static_graph=False,
                               data_dir=None):
     """Seeded S3DIS-style trainer run -> final val mIoU (13-fold recipe
@@ -209,7 +209,7 @@ def s3dis_train_and_eval_miou(compute_dtype, knn_fast, *, seed=0,
             cfg,
             model=dataclasses.replace(
                 cfg.model, num_points=1024, compute_dtype=compute_dtype,
-                knn_fast=knn_fast, static_graph=static_graph),
+                static_graph=static_graph),
             train=dataclasses.replace(cfg.train, batch_size=8, style="Full",
                                       rampup=2),
             weaksup=dataclasses.replace(cfg.weaksup, rampup=2),
